@@ -1,0 +1,43 @@
+"""Architecture registry of the port: ``get_config("<arch-id>")``.
+
+The dense configs of the reference registry, copied with their published
+widths and sources; reduced smoke-test variants come from
+``cfg.reduced()``.
+"""
+from __future__ import annotations
+
+from ..models.config import ModelConfig
+
+_CONFIGS = {
+    # arXiv:2401.02385 — Llama-2 architecture, small
+    "tinyllama-1.1b": ModelConfig(
+        name="tinyllama-1.1b", arch_type="dense", n_layers=22, d_model=2048,
+        n_heads=32, n_kv_heads=4, d_ff=5632, vocab=32000,
+        source="arXiv:2401.02385"),
+    # arXiv:2407.10671 — QKV bias, tied embeddings, rope theta 1e6
+    "qwen2-0.5b": ModelConfig(
+        name="qwen2-0.5b", arch_type="dense", n_layers=24, d_model=896,
+        n_heads=14, n_kv_heads=2, d_ff=4864, vocab=151936, qkv_bias=True,
+        tie_embeddings=True, rope_theta=1000000.0,
+        source="arXiv:2407.10671"),
+    # LayerNorm, partial rotary (25% of the head dim), full MHA
+    "stablelm-1.6b": ModelConfig(
+        name="stablelm-1.6b", arch_type="dense", n_layers=24, d_model=2048,
+        n_heads=32, n_kv_heads=32, d_ff=5632, vocab=100352, norm="layer",
+        act="silu", glu=True, rope_frac=0.25,
+        source="hf:stabilityai/stablelm-2-1_6b"),
+    # the paper's benchmark model: sinusoidal positions, ReLU FFN
+    "transformer-paper": ModelConfig(
+        name="transformer-paper", arch_type="dense", n_layers=6,
+        d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048, vocab=32768,
+        norm="layer", act="relu", glu=False, rope_frac=0.0,
+        source="arXiv:1706.03762 (Transformer-base; DisCo benchmark model)"),
+}
+
+ARCHS = tuple(_CONFIGS)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_CONFIGS)}")
+    return _CONFIGS[name]

@@ -1,0 +1,55 @@
+"""Model configuration for the dense decoders the port runs.
+
+The port's own copy of ``repro.models.config.ModelConfig``: the same field
+names, defaults and ``reduced()`` smoke-test variant, restricted to the
+dense attention blocks this package implements (no MLA, MoE, recurrent,
+encoder-decoder or VLM sub-configs yet).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    norm: str = "rms"             # rms | layer
+    act: str = "silu"             # silu | gelu | relu
+    glu: bool = True              # gated FFN (SwiGLU/GeGLU)
+    qkv_bias: bool = False
+    rope_frac: float = 1.0        # fraction of head_dim rotated (StableLM: 0.25)
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    window: Optional[int] = None  # sliding-window size for attention blocks
+    dtype: str = "bfloat16"
+    source: str = ""              # citation
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: 2 layers, d_model 256, f32 (as the
+        reference's ``reduced()`` for dense configs)."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=256,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 4) if self.n_kv_heads > 1 else 1,
+            d_ff=512,
+            vocab=512,
+            head_dim=64,
+            window=min(self.window, 64) if self.window else None,
+            dtype="float32",
+        )
