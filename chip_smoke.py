@@ -96,6 +96,13 @@ def check_equal(what: str, got: list, want: list) -> float:
     return err
 
 
+def meta_params(cfg):
+    """The parameter tree of ``cfg`` as meta tensors: shapes and dtypes
+    only, nothing drawn or allocated."""
+    with torch.device("meta"):
+        return ST.init_params(cfg, device="meta")
+
+
 def phase_card_and_build() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -223,8 +230,8 @@ def phase_training(dev, tmp: str, strat, leaves) -> tuple[dict, str]:
     # the port on the card against the port on the CPU, on a small input
     small = os.path.join(tmp, "small.json")
     cfg = get_config(ARCH).reduced()
-    buckets = TS.GradSyncStrategy.size_capped(
-        ST.init_params(cfg, device="cpu"), 1 << 16).buckets
+    buckets = TS.GradSyncStrategy.size_capped(meta_params(cfg),
+                                              1 << 16).buckets
     TS.GradSyncStrategy(buckets, comms=["ar"] * len(buckets),
                         chunks=[2] * len(buckets),
                         fused=[1] * len(buckets)).save(small)
@@ -317,8 +324,7 @@ def main() -> int:
     t0 = time.time()
     phase_card_and_build()
     # the main path's leaves (shapes and dtypes only) and 25 MiB buckets
-    leaves = [torch.empty(p.shape, dtype=p.dtype, device="meta") for p in
-              ST.leaves(ST.init_params(get_config(ARCH), device=dev))]
+    leaves = ST.leaves(meta_params(get_config(ARCH)))
     strat = TS.GradSyncStrategy.size_capped(leaves)
     res = phase_kernels(dev, strat, leaves)
     torch.cuda.empty_cache()

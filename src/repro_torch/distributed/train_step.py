@@ -339,9 +339,6 @@ def build_train_step(
         loss.backward()
         return loss.detach(), [p.grad for p in leaves]
 
-    def upcast(g):
-        return K.convert_copy(g, torch.float32)
-
     def step(params, opt_state, batch):
         leaves = T.leaves(params)
         for p in leaves:
@@ -354,7 +351,7 @@ def build_train_step(
         grads = sync_grads(grads, strat, group)
         dist.all_reduce(loss, group=group)
         loss = loss / dp
-        grads, gnorm = clip_by_global_norm(grads, clip_norm, upcast=upcast)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
         for p in leaves:
             p.grad = None
         updates, opt_state = opt_update(grads, opt_state, leaves)

@@ -2,10 +2,10 @@
 shared library with a plain C interface, loaded through ``ctypes``).
 
 The build runs at first use, never at import: it compiles
-``csrc/grad_sync.cu`` for ``sm_90a`` into ``build/`` at the repository
-root, under a name keyed by the source's and flags' hash, so an edited
-source is rebuilt and an unchanged one is reused.  A failed build raises;
-nothing falls back to the plain versions.
+``csrc/grad_sync.cu`` for ``sm_90a`` into :data:`BUILD_DIR`, under a name
+keyed by the source's and flags' hash, so an edited source is rebuilt and
+an unchanged one is reused.  A failed build raises; nothing falls back to
+the plain versions.
 """
 from __future__ import annotations
 
@@ -20,7 +20,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "grad_sync.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+
+
+def _build_dir() -> Path:
+    """``build/`` at the checkout's root when the package runs from a
+    source checkout (``<root>/src/repro_torch``), else ``build/`` inside
+    the installed package, beside ``csrc/``.  Never a directory shared
+    with anything else."""
+    pkg = Path(__file__).resolve().parents[1]
+    if pkg.parent.name == "src":
+        return pkg.parent.parent / "build"
+    return pkg / "build"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,6 +68,9 @@ def build() -> tuple[Path, float, str]:
     if so.exists():
         return so, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not os.access(BUILD_DIR, os.W_OK):
+        raise RuntimeError(f"kernel build directory {BUILD_DIR} is not "
+                           f"writable")
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],

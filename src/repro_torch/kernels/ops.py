@@ -212,14 +212,16 @@ fused_pack.launches = 0
 
 
 # ------------------------------------------------------------ fused unpack
-def fused_unpack(buf, shapes, dtypes, out: list | None = None) -> list:
+def fused_unpack(parts: list, shapes, dtypes,
+                 out: list | None = None) -> list:
     """Unstage a gathered f32 bucket into leaves of ``shapes`` and
-    ``dtypes`` (f32 -> grad dtype, round to nearest even).  ``buf`` is the
-    flat (total,) bucket or the list of its chunks as :func:`fused_pack`
-    laid them out (chunk ``c`` cut at :func:`chunk_cuts` of the leaves'
-    total, any padding after its data ignored).  With ``out``, the leaves
-    are written into those tensors, in place, and returned."""
-    parts = [buf] if isinstance(buf, torch.Tensor) else list(buf)
+    ``dtypes`` (f32 -> grad dtype, round to nearest even).  ``parts`` is
+    the list of the bucket's chunks as :func:`fused_pack` laid them out
+    (chunk ``c`` cut at :func:`chunk_cuts` of the leaves' total, any
+    padding after its data ignored); ``[flat]`` is the unchunked bucket.
+    With ``out``, the leaves are written into those tensors, in place, and
+    returned."""
+    parts = list(parts)
     sizes = [math.prod(s) for s in shapes]
     total = sum(sizes)
     cuts = chunk_cuts(total, len(parts))

@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import ops as K
+
 
 class OptState(NamedTuple):
     mu: list         # first moments, f32
@@ -49,13 +51,12 @@ def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
     return fn
 
 
-def clip_by_global_norm(grads: list, max_norm: float, upcast=None):
+def clip_by_global_norm(grads: list, max_norm: float):
     """Scale ``grads`` to global f32 norm at most ``max_norm``.  Returns
-    (f32 clipped grads, norm).  Each gradient is cast up to f32 first, by
-    ``upcast(g)`` when given (the train step passes the convert-copy
-    kernel), as the reference's ``g * scale`` promotes a bf16 gradient."""
-    g32 = [g if g.dtype == torch.float32
-           else (upcast(g) if upcast is not None else g.float())
+    (f32 clipped grads, norm).  Each gradient that is not f32 is cast up
+    first by the convert-copy kernel's wrapper, as the reference's
+    ``g * scale`` promotes a bf16 gradient."""
+    g32 = [g if g.dtype == torch.float32 else K.convert_copy(g, torch.float32)
            for g in grads]
     gnorm = torch.sqrt(sum(g.square().sum() for g in g32))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)

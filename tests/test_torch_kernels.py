@@ -100,7 +100,8 @@ def test_fused_unpack_matches_pallas(sizes, dt):
     shapes = [(s,) for s in sizes]
     jout = JK.fused_unpack(jnp.asarray(flat), shapes, [jdt] * len(sizes))
     jref = JR.fused_unpack_ref(jnp.asarray(flat), shapes, [jdt] * len(sizes))
-    got = K.fused_unpack(torch.from_numpy(flat), shapes, [tdt] * len(sizes))
+    got = K.fused_unpack([torch.from_numpy(flat)], shapes,
+                         [tdt] * len(sizes))
     for g, j, r in zip(got, jout, jref):
         assert g.dtype == tdt and tuple(g.shape) == tuple(j.shape)
         np.testing.assert_array_equal(_bits(g), _bits(j))
@@ -166,9 +167,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         K.fused_pack([torch.zeros(4), torch.zeros(4, device="meta")], 8, 1)
     with pytest.raises(ValueError):
-        K.fused_unpack(torch.zeros(3), [(4,)], [torch.float32])
+        K.fused_unpack([torch.zeros(3)], [(4,)], [torch.float32])
     with pytest.raises(ValueError):
-        K.fused_unpack(torch.zeros(4), [(4,)], [torch.float32],
+        K.fused_unpack([torch.zeros(4)], [(4,)], [torch.float32],
                        out=[torch.zeros(4, dtype=torch.bfloat16)])
 
 
