@@ -1,11 +1,11 @@
-"""Wrappers of the gradient-sync staging kernels (port of the matching
-wrappers in ``repro/kernels/ops.py``).
+"""Wrappers of the port's CUDA kernels (port of the matching wrappers in
+``repro/kernels/ops.py``): the gradient-sync staging kernels
+(``csrc/grad_sync.cu``) and flash attention (``csrc/flash_attention.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 * on CPU tensors, returns its plain PyTorch version from :mod:`.ref`;
-* on CUDA tensors, launches its CUDA kernel (``csrc/grad_sync.cu``) on the
-  current stream, or raises.  There is no fallback and no switch: the
-  tensors' device decides.
+* on CUDA tensors, launches its CUDA kernel on the current stream, or
+  raises.  There is no fallback and no switch: the tensors' device decides.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``fused_pack.launches``), incremented only where the kernel launches.
@@ -18,6 +18,7 @@ reach it even though the kernels themselves only run on the card.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -271,6 +272,66 @@ def fused_unpack(parts: list, shapes, dtypes,
 fused_unpack.launches = 0
 
 
+# --------------------------------------------------------- flash attention
+FLASH_HEAD_DIMS = (32, 64, 128)
+_FLASH_MAX_THREADS = 256    # kMaxThreads of csrc/flash_attention.cu
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Forward GQA attention.  q: (B,S,H,hd); k, v: (B,T,KV,hd), one dtype
+    (f32, bf16 or f16), hd in :data:`FLASH_HEAD_DIMS`, H % KV == 0; any S
+    and T.  Causal and window masks count positions from 0, as
+    :func:`.ref.flash_attention_ref` does.  Forward only: on the card it
+    raises when autograd would need its gradient."""
+    from .build import load_library
+
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must be 4-D")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, T, KV, hd) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {KV} KV heads")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} is not one of "
+                         f"{FLASH_HEAD_DIMS}")
+    if hd // 16 * (H // KV) > _FLASH_MAX_THREADS:
+        raise ValueError(f"flash_attention: {H // KV} query heads per KV "
+                         f"head at head dim {hd} exceed one block")
+    for t in (q, k, v):
+        _check_dtype(t, "flash_attention")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share one dtype")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if not _on_cuda([q, k, v], "flash_attention"):
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+    _check_contiguous([q, k, v], "flash_attention")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernel is forward "
+                           "only; call it under torch.no_grad()")
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _CODES[q.dtype], B, S, T, H, KV, hd, int(causal), window or 0,
+            int(_aligned(k.data_ptr(), v.data_ptr())),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
 def reset_launches() -> None:
-    for fn in (convert_copy, fused_pack, fused_unpack):
+    for fn in (convert_copy, fused_pack, fused_unpack, flash_attention):
         fn.launches = 0

@@ -1,13 +1,15 @@
-"""Plain PyTorch versions of the gradient-sync staging kernels (port of the
-matching oracles in ``repro/kernels/ref.py`` and of ``chunk_cuts`` in
+"""Plain PyTorch versions of the port's kernels (port of the matching
+oracles in ``repro/kernels/ref.py`` and of ``chunk_cuts`` in
 ``repro/kernels/fused_grad_sync.py``).
 
-The CPU path of every kernel wrapper in :mod:`.ops` is one of these, and on
-the card each kernel is held bitwise equal to them.
+The CPU path of every kernel wrapper in :mod:`.ops` is one of these.  On
+the card the gradient-sync kernels are held bitwise equal to them, and the
+flash-attention kernel within the tolerances of ``tests/test_kernels.py``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,3 +53,27 @@ def fused_unpack_ref(buf: torch.Tensor, shapes, dtypes) -> list:
         out.append(buf[off:off + n].reshape(shape).to(dt))
         off += n
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd).  Dense softmax
+    attention with GQA head grouping (head h reads KV head h // (H/KV)) and
+    an optional causal and sliding-window mask, positions counted from 0.
+    Scores and softmax in f32; the probabilities are cast to v's dtype
+    before the PV product, as in the reference."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k).float() / math.sqrt(hd)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    ok = (kpos <= qpos if causal
+          else torch.ones((S, T), dtype=torch.bool, device=q.device))
+    if window is not None:
+        ok = ok & (kpos > qpos - window)
+    s = s.masked_fill(~ok, torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype), v)
+    return out.reshape(B, S, H, hd)

@@ -6,10 +6,16 @@ Conventions, as in the reference:
   of shape (d_in, d_out), cast to the activation dtype at use;
 * activations are (B, S, D); attention heads are laid out (B, S, H, hd).
 
-Only the train/prefill path over a full sequence is ported: no KV cache,
-decode, MLA or MoE yet.  Where the reference promotes a bf16 tensor to f32
-(a numpy scalar or an f32 operand in the expression), the port promotes it
-at the same point, so bf16 runs round at the same places.
+Ported: the train and prefill path over a full sequence (with flash
+attention through the CUDA kernel when asked for), and decode against a
+bf16/f32 KV cache.  Not yet: the int8 KV cache, MLA and MoE.  Decode takes
+one position per batch row, so the serving engine advances every slot in
+one batched call where the reference vmaps a batch-1 step; each row
+computes what the reference's step computes.
+
+Where the reference promotes a bf16 tensor to f32 (a numpy scalar or an f32
+operand in the expression), the port promotes it at the same point, so
+bf16 runs round at the same places.
 """
 from __future__ import annotations
 
@@ -54,14 +60,14 @@ def rope_freqs(cfg: ModelConfig, rot_dim: int, device) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (S,).  Rotates the first
-    ``rope_frac`` of each head."""
+    """x: (B, S, H, hd); positions: (S,), or (B, S) for one set per row.
+    Rotates the first ``rope_frac`` of each head."""
     rot = int(x.shape[-1] * cfg.rope_frac)
     if rot == 0:
         return x
     inv = rope_freqs(cfg, rot, x.device)
-    ang = positions[:, None].float() * inv[None, :]       # (S, rot/2)
-    ang = ang[None, :, None, :]
+    ang = positions[..., None].float() * inv          # (..., S, rot/2)
+    ang = ang[..., None, :] if ang.dim() == 3 else ang[None, :, None, :]
     sin, cos = torch.sin(ang), torch.cos(ang)
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., ::2], xr[..., 1::2]
@@ -125,16 +131,27 @@ _CHUNK_THRESHOLD = 2048
 _Q_BLOCK = 512
 
 
-def sdpa(q, k, v, window: Optional[int] = None):
-    """Causal attention.  q: (B,S,H,hd); k,v: (B,T,KV,hd).  GQA: query heads
-    grouped over KV heads.  Long self-attention takes the query-chunked
-    online-softmax path so the score matrix working set stays bounded."""
+def sdpa(q, k, v, mask, use_flash: bool = False,
+         window: Optional[int] = None, causal: bool = True):
+    """q: (B,S,H,hd); k,v: (B,T,KV,hd); mask: (B,1,1|S,T) additive or None.
+    GQA: query heads grouped over KV heads.  Routed as in the reference:
+    ``use_flash`` with no mask takes the flash-attention kernel
+    (:func:`repro_torch.kernels.ops.flash_attention`); otherwise long
+    self-attention takes the query-chunked online-softmax path so the score
+    matrix working set stays bounded, and the rest the dense path."""
     S, T = q.shape[1], k.shape[1]
-    if S > _CHUNK_THRESHOLD and S == T:
-        for blk in (_Q_BLOCK, 256, 128, 64):
-            if S % blk == 0:
-                return _flash_xla(q, k, v, True, window, qb=blk, kb=blk)
-    bias = _causal_bias(S, T, True, window, q.device)[None, None, None]
+    if use_flash and mask is None:
+        from ..kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=causal, window=window)
+    if mask is None:
+        if S > _CHUNK_THRESHOLD and S == T:
+            for blk in (_Q_BLOCK, 256, 128, 64):
+                if S % blk == 0:
+                    return _flash_xla(q, k, v, causal, window, qb=blk,
+                                      kb=blk)
+        bias = _causal_bias(S, T, causal, window, q.device)[None, None, None]
+        return _sdpa_dense(q, k, v, bias)
+    bias = mask[:, :, None] if mask.dim() == 4 else mask
     return _sdpa_dense(q, k, v, bias)
 
 
@@ -193,8 +210,17 @@ def _flash_xla(q, k, v, causal, window, qb: int = _Q_BLOCK,
 
 
 def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
-                  window: Optional[int] = None):
-    """Causal self-attention over a full sequence (train/prefill)."""
+                  cache: Optional[dict] = None,
+                  pos: Optional[torch.Tensor] = None,
+                  window: Optional[int] = None, use_flash: bool = False,
+                  return_cache: bool = False, cache_len: int = 0):
+    """Self-attention.  Train/prefill when ``cache`` is None (optionally
+    returning a fresh cache of length ``cache_len``); decode when ``cache``
+    and ``pos`` are given (x is (B,1,D); ``pos`` a scalar or one position
+    per row, and ``positions`` (1,) or (B,1) to match).  Decode writes the
+    new k/v into ``cache`` in place and returns it; the reference returns an
+    updated copy.  Returns ``out``, or ``(out, cache)`` when a cache is
+    given or asked for."""
     B, S, D = x.shape
     hd = cfg.hd
     q = x @ p["wq"].to(x.dtype)
@@ -207,8 +233,45 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     q = apply_rope(q.reshape(B, S, cfg.n_heads, hd), positions, cfg)
     k = apply_rope(k.reshape(B, S, cfg.n_kv_heads, hd), positions, cfg)
     v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    out = sdpa(q, k, v, window=window)
-    return out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
+
+    new_cache = None
+    if cache is not None:
+        # decode: write k, v at each row's position (pos % size for a
+        # window's ring buffer), clamped into the cache as the reference's
+        # dynamic_update_slice clamps
+        ck, cv = cache["k"], cache["v"]
+        csize = ck.shape[1]
+        pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+        slot = pos % csize if window is not None else pos
+        slot = slot.clamp(0, csize - S)
+        rows = torch.arange(B, device=x.device)
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        kpos = torch.arange(csize, device=x.device)[None, :]
+        if window is not None:
+            # ring buffer: entry i holds an absolute position within the
+            # last `csize` positions
+            age = (slot[:, None] - kpos) % csize
+            ok = age <= torch.clamp(pos, max=csize - 1)[:, None]
+        else:
+            ok = kpos <= pos[:, None]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        mask = torch.where(ok, zero, torch.full_like(zero, _F32_MIN))
+        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask[:, None, None, :])
+    else:
+        out = sdpa(q, k, v, None, use_flash=use_flash, window=window)
+        if return_cache:
+            size = cache_len or S
+            take = min(S, size)
+            ck = torch.zeros((B, size, cfg.n_kv_heads, hd), dtype=x.dtype,
+                             device=x.device)
+            cv = torch.zeros_like(ck)
+            ck[:, :take] = k[:, S - take:]
+            cv[:, :take] = v[:, S - take:]
+            new_cache = {"k": ck, "v": cv}
+    out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
+    return (out, new_cache) if (return_cache or cache is not None) else out
 
 
 # --------------------------------------------------------------------- FFN

@@ -1,6 +1,7 @@
 """Dense decoder pieces shared by the stacked model (port of
 ``repro/models/model.py``: ``init_layer``, ``_sinusoid``, ``_embed``,
-``_unembed`` and ``_layer_fwd``, dense attention blocks only)."""
+``_unembed``, ``_layer_fwd`` and ``init_cache``, dense attention blocks
+only)."""
 from __future__ import annotations
 
 import numpy as np
@@ -47,9 +48,33 @@ def _unembed(params, cfg: ModelConfig, x):
     return x @ params["lm_head"]
 
 
-def _layer_fwd(p, cfg: ModelConfig, x, positions):
-    """One dense block (pre-norm attention, then pre-norm MLP)."""
+def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
+               return_cache: bool = False, cache_len: int = 0,
+               use_kernels: bool = False):
+    """One dense block (pre-norm attention, then pre-norm MLP).  Returns
+    x, or (x, new_cache) when a cache is given or asked for, as
+    ``attention_fwd`` does.  ``use_kernels`` runs attention through the
+    flash-attention kernel."""
+    want_cache = return_cache or cache is not None
     h = L.norm_fwd(p["ln1"], cfg, x)
-    x = x + L.attention_fwd(p["attn"], cfg, h, positions, window=cfg.window)
+    r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache, pos=pos,
+                        window=cfg.window, use_flash=use_kernels,
+                        return_cache=return_cache, cache_len=cache_len)
+    attn_out, new_cache = r if want_cache else (r, None)
+    x = x + attn_out
     h2 = L.norm_fwd(p["ln2"], cfg, x)
-    return x + L.mlp_fwd(p["mlp"], cfg, h2)
+    x = x + L.mlp_fwd(p["mlp"], cfg, h2)
+    return (x, new_cache) if want_cache else x
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> list:
+    """Per-layer zero decode state: ``{"k", "v"}`` of (batch, size, KV, hd)
+    in ``cfg.dtype``, with size ``min(cache_len, window)`` for a sliding
+    window, as in the reference."""
+    dt = getattr(torch, cfg.dtype)
+    size = min(cache_len, cfg.window) if cfg.window else cache_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+    return [{"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+            for _ in range(cfg.n_layers)]

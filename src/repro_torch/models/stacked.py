@@ -12,6 +12,13 @@ Where the reference scans the layer group, the port loops over the layers;
 ``remat`` rematerialises each layer (and each cross-entropy chunk) in the
 backward through ``torch.utils.checkpoint``, as ``jax.checkpoint`` does in
 the reference.
+
+Serving: :func:`init_cache` keeps the reference's stacked cache layout (a
+list per layer group of ``{"k", "v"}``, each (n_layers, B, size, KV, hd)),
+:func:`prefill` returns the last position's logits and fresh caches, and
+:func:`decode_step` advances one token per row.  ``use_kernels=True`` runs
+attention through the flash-attention kernel, as the reference's
+``use_kernels`` runs its Pallas kernel; the train step never sets it.
 """
 from __future__ import annotations
 
@@ -50,31 +57,47 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     return params
 
 
-def hidden_forward(params, cfg: ModelConfig, tokens, *, remat: bool = False):
-    """Everything before the unembed: (B, S) tokens -> (B, S, D) normed
-    hidden states."""
+def _layers(params, cfg: ModelConfig):
+    """Each layer's parameters: views of the stacked leaves (unbound once,
+    so the backward stacks the per-layer gradients once per leaf)."""
+    group = params["groups"][0]
+    per_leaf = [leaf.unbind(0) for leaf in T.leaves(group)]
+    return [T.unflatten(group, [u[li] for u in per_leaf])
+            for li in range(cfg.n_layers)]
+
+
+def _embed_positions(params, cfg: ModelConfig, tokens):
+    """Embedded tokens (B, S, D), with the sinusoid added for
+    ``rope_frac == 0``, and the positions (S,)."""
     x = M._embed(params, cfg, tokens)
     S = x.shape[1]
-    positions = torch.arange(S, device=x.device)
     if cfg.rope_frac == 0.0:
         x = x + M._sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
-    group = params["groups"][0]
-    # unbind once: each layer reads views of the stacked leaves, and the
-    # backward stacks the per-layer gradients once per leaf
-    per_leaf = [leaf.unbind(0) for leaf in T.leaves(group)]
-    for li in range(cfg.n_layers):
-        p = T.unflatten(group, [u[li] for u in per_leaf])
+    return x, torch.arange(S, device=x.device)
+
+
+def hidden_forward(params, cfg: ModelConfig, tokens, *,
+                   use_kernels: bool = False, remat: bool = False):
+    """Everything before the unembed: (B, S) tokens -> (B, S, D) normed
+    hidden states."""
+    x, positions = _embed_positions(params, cfg, tokens)
+
+    def block(p, x):
+        return M._layer_fwd(p, cfg, x, positions, use_kernels=use_kernels)
+
+    for p in _layers(params, cfg):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(M._layer_fwd, p, cfg, x, positions,
-                           use_reentrant=False)
+            x = checkpoint(block, p, x, use_reentrant=False)
         else:
-            x = M._layer_fwd(p, cfg, x, positions)
+            x = block(p, x)
     return L.norm_fwd(params["final_norm"], cfg, x)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, remat: bool = False):
+def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
+            remat: bool = False):
     """Full-sequence logits (B, S, vocab)."""
-    x = hidden_forward(params, cfg, tokens, remat=remat)
+    x = hidden_forward(params, cfg, tokens, use_kernels=use_kernels,
+                       remat=remat)
     return M._unembed(params, cfg, x)
 
 
@@ -118,3 +141,58 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
         ce_sum = ce_sum + ce
         cnt = cnt + n
     return ce_sum / torch.clamp(cnt, min=1.0)
+
+
+# ------------------------------------------------------------------- decode
+def _stack_caches(per_layer: list) -> list:
+    """Per-layer ``{"k", "v"}`` caches into the stacked layout: one group
+    of (n_layers, B, size, KV, hd) leaves."""
+    return [{name: torch.stack([c[name] for c in per_layer])
+             for name in ("k", "v")}]
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda") -> list:
+    """Zero decode caches in the reference's stacked layout."""
+    dev = resolve_device(device)
+    return _stack_caches(M.init_cache(cfg, batch, cache_len, device=dev))
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, pos):
+    """One serving step.  ``token`` (B,) int; ``pos`` the position each row
+    writes: a scalar, as in the reference, or (B,) for one per row.
+    Writes the new k/v into ``caches`` in place.  Returns (logits (B,
+    vocab), caches)."""
+    x = M._embed(params, cfg, token[:, None])
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+    if cfg.rope_frac == 0.0:
+        D = cfg.d_model
+        dim = torch.arange(0, D, 2, device=x.device).float() / D
+        ang = pos.float()[:, None] / torch.pow(10000.0, dim)
+        pe = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        pe[:, 0::2] = torch.sin(ang).to(x.dtype)
+        pe[:, 1::2] = torch.cos(ang).to(x.dtype)
+        x = x + pe[:, None]
+    positions = pos[:, None]
+    group = caches[0]
+    for li, p in enumerate(_layers(params, cfg)):
+        x, _ = M._layer_fwd(p, cfg, x, positions,
+                            cache={"k": group["k"][li], "v": group["v"][li]},
+                            pos=pos)
+    x = L.norm_fwd(params["final_norm"], cfg, x)
+    return M._unembed(params, cfg, x)[:, 0], caches
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
+            use_kernels: bool = False):
+    """Run a (B, S) prompt; returns the last position's logits (B, vocab)
+    and fresh caches of length ``cache_len`` holding the prompt's k/v."""
+    x, positions = _embed_positions(params, cfg, tokens)
+    per_layer = []
+    for p in _layers(params, cfg):
+        x, c = M._layer_fwd(p, cfg, x, positions, return_cache=True,
+                            cache_len=cache_len, use_kernels=use_kernels)
+        per_layer.append(c)
+    x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
+    return M._unembed(params, cfg, x)[:, 0], _stack_caches(per_layer)
