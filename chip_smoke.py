@@ -15,33 +15,55 @@ Phases, each of which stops the run with a nonzero exit on failure:
     each kernel timed with CUDA events (median of 20 runs after warm-up)
     beside its plain version, one PyTorch call where there is one, and its
     HBM bound.
-(c) flash attention against its plain version at the serving path's
-    prefill shapes (q (1,S,32,64), k and v (1,S,4,64), bf16, causal, S in
-    1, 129, 1000, 2048) and at off-path cases (f32, hd 128, a window of
-    128, non-causal); at the path's shapes also against the plain version
-    on f32 copies of the inputs, to about one bf16 ulp of the output;
-    timed per launch beside its plain version,
-    ``scaled_dot_product_attention`` and its bound.
-(d) training: reduced tinyllama on the card against the same run on the
+(c) flash attention against its plain version at tinyllama's prefill
+    shapes (q (1,S,32,64), k and v (1,S,4,64), bf16, causal, S in 1, 129,
+    1000, 2048) and at off-path cases (f32, hd 128, a window of 128,
+    non-causal); at the path's shapes also against the plain version on f32
+    copies of the inputs, to about one bf16 ulp of the output; timed per
+    launch beside its plain version, ``scaled_dot_product_attention`` and
+    its bound.
+(d) the RG-LRU kernel against its plain version at recurrentgemma-9b's
+    prefill shapes ((1,S,4096) bf16, S in 1, 129, 1024, 1984, 2048) and at
+    off-path cases (f32, B=2, L=1000, lam in another dtype); timed at
+    S=2048 beside its plain version and its HBM bound.
+(e) flash attention at recurrentgemma-9b's local attention (q (1,S,16,256),
+    k and v (1,S,1,256), bf16, causal, window 2048, S in 1, 129, 1984,
+    2048, and S=3000 past the window), checked as in (c) and timed beside
+    SDPA and its bound.
+(f) training: reduced tinyllama on the card against the same run on the
     CPU; then the training path — ``repro_torch.launch.train.main`` on full
     tinyllama-1.1b (22 layers, d_model 2048, bf16 weights, f32 AdamW
     moments), batch 4 x seq 2048, in a one-rank NCCL group, with every
     bucket fused into 2 chunks.  Launch and collective counters are zeroed
     just before and read just after, and must show every kernel ran.
-(e) a trace: device time by kernel over 3 more steps of the training path,
+(g) a trace: device time by kernel over 3 more steps of the training path,
     from ``torch.profiler`` (printed only; it changes no result).
-(f) serving checks: reduced tinyllama served on the card against the same
-    requests served on the CPU (equal greedy tokens); full tinyllama-1.1b
-    ``prefill`` with the kernel against ``prefill`` without it at 129 and
-    2048 tokens (largest logit and cache differences under stated
-    tolerances), the 2048-token prefill timed, and a decode step traced.
-(g) serving: the serving path — ``ServeEngine`` on full tinyllama-1.1b
-    (bf16 weights and KV cache, 8 slots, cache 4096), 35 requests submitted
-    at once (32 of ``Workload(n_requests=32, prompt_lens=(16, 2048),
-    new_tokens=(32, 64))`` plus prompts of 1, 129 and 2048 tokens), decoded
-    greedily to completion.  The launch counters are zeroed just before and
-    read just after: flash attention runs once per layer per prefill.
-(h) a JSON line of every kernel's numbers, then the device line last.
+(h) serving checks, tinyllama-1.1b: the reduced model served on the card
+    against the same requests served on the CPU (equal greedy tokens); full
+    ``prefill`` with the kernel against ``prefill`` without it, and both
+    against f32 weights, at 129 and 2048 tokens (largest logit and cache
+    differences under stated tolerances); the 2048-token prefill timed; a
+    decode step traced.
+(i) serving tinyllama-1.1b: ``ServeEngine`` (bf16 weights and KV cache, 8
+    slots, cache 4096), 35 requests submitted at once (32 of
+    ``Workload(n_requests=32, prompt_lens=(16, 2048), new_tokens=(32,
+    64))`` plus prompts of 1, 129 and 2048 tokens), decoded greedily to
+    completion.  The launch counters are zeroed just before and read just
+    after: flash attention runs once per layer per prefill.
+(j) serving checks, recurrentgemma-9b, as (h): the reduced model on the
+    card against the CPU; full ``prefill`` with both kernels against
+    ``prefill`` without them and both against f32 weights, at 129 and 1984
+    tokens (logits, k/v caches and RG-LRU states under stated tolerances);
+    the 1984-token prefill timed; a decode step traced.  Full-size weights
+    are drawn on the card.
+(k) serving recurrentgemma-9b (38 layers, d_model 4096, bf16 weights and
+    cache, 8 slots, cache 2048 = the attention window): 20 requests
+    submitted at once (16 of ``Workload(n_requests=16, prompt_lens=(16,
+    1920), new_tokens=(32, 64))`` plus prompts of 1, 129, 1024 and 1984
+    tokens), greedy.  The RG-LRU kernel runs once per RG-LRU layer per
+    prefill (26 x 20) and flash attention once per attention layer (12 x
+    20).
+(l) a JSON line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
@@ -54,6 +76,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -75,30 +98,82 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16/f16 tensor cores
 F32_FLOP_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
 ARCH, BATCH, SEQ, STEPS, CHUNKS = "tinyllama-1.1b", 4, 2048, 4, 2
-SLOTS, CACHE_LEN = 8, 4096
+SLOTS = 8
 FLASH_SEQS = (1, 129, 1000, 2048)
+RG_ARCH = "recurrentgemma-9b"
+RG_SEQS = (1, 129, 1024, 1984, 2048)      # RG-LRU and flash check lengths
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"convert_copy": CSRC + "grad_sync.cu",
           "fused_pack": CSRC + "grad_sync.cu",
           "fused_unpack": CSRC + "grad_sync.cu",
-          "flash_attention": CSRC + "flash_attention.cu"}
+          "flash_attention": CSRC + "flash_attention.cu",
+          "rglru_scan": CSRC + "rglru.cu"}
 REPLACES = {"convert_copy": "src/repro/kernels/bucket_pack.py:20",
             "fused_pack": "src/repro/kernels/fused_grad_sync.py:40",
             "fused_unpack": "src/repro/kernels/fused_grad_sync.py:66",
-            "flash_attention": "src/repro/kernels/flash_attention.py:82"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:82",
+            "rglru_scan": "src/repro/kernels/rglru.py:40"}
 SYNC_KERNELS = ("convert_copy", "fused_pack", "fused_unpack")
-# Largest |logit| difference allowed between full tinyllama-1.1b prefill
-# with the flash kernel and without it (dense attention), bf16 weights.
-# Both bf16 paths lie about 0.065 from an f32 run (logits of magnitude up
-# to 4, 22 layers of bf16 rounding), so they differ by up to about 0.14;
-# a wrong mask or head mapping moves logits by their own scale.  See
-# PERF.md, section 6 (the serving slice).
-PREFILL_LOGIT_TOL = 0.25
-# The same for every k/v cache entry (22 layers of bf16 k and v, the first
-# layer's equal on both paths).  Both paths measured 0.08 (S=129) and 0.10
-# (S=2048) apart, H100; a wrong mask moves later layers' k/v by their own
-# scale.  See PERF.md, section 6.
-PREFILL_CACHE_TOL = 0.25
+# Operations of the RG-LRU kernel per element: the gate math (r scale,
+# two exp, 1 - e, max, sqrt, i x, product) and one multiply-add.
+RGLRU_OPS_PER_ELEM = 11
+
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """One serving cell: the model, the engine's cache, the prefill check
+    lengths with their tolerances, the reduced engine's prompts, and the
+    traffic (a ``Workload`` plus extra prompts of 32 new tokens each)."""
+    arch: str
+    cache_len: int
+    check_seqs: tuple
+    logit_tol: float
+    cache_tol: float
+    state_tol: Optional[float]
+    reduced_lens: tuple
+    workload: WL.Workload
+    extra_prompts: tuple
+
+
+TINYLLAMA = Serving(
+    ARCH, 4096, (129, 2048),
+    # Largest |logit| difference allowed between full tinyllama-1.1b
+    # prefill with the flash kernel and without it (dense attention), bf16
+    # weights.  Both bf16 paths lie about 0.065 from an f32 run (logits of
+    # magnitude up to 4, 22 layers of bf16 rounding), so they differ by up
+    # to about 0.14; a wrong mask or head mapping moves logits by their own
+    # scale.  See PERF.md, section 6 (the serving slice).
+    logit_tol=0.25,
+    # The same for every k/v cache entry (22 layers of bf16 k and v, the
+    # first layer's equal on both paths).  Both paths measured 0.08 (S=129)
+    # and 0.10 (S=2048) apart, H100; a wrong mask moves later layers' k/v by
+    # their own scale.  See PERF.md, section 6.
+    cache_tol=0.25, state_tol=None,
+    reduced_lens=(1, 7, 40, 64, 65),
+    workload=WL.Workload(n_requests=32, prompt_lens=(16, 2048),
+                         new_tokens=(32, 64), seed=0),
+    extra_prompts=(1, 129, 2048))
+
+RECURRENTGEMMA = Serving(
+    RG_ARCH, 2048, (129, 1984),
+    # Largest |logit| difference allowed between full recurrentgemma-9b
+    # prefill with both kernels and without them, bf16 weights.  The
+    # kernel-free path runs the RG-LRU gates and scan in bf16, the kernel in
+    # f32.  Measured 0.176 (S=129) and 0.172 (S=1984) at logits up to 22-25,
+    # where a bf16 ulp is 0.125; each path lies 0.155-0.166 from an f32 run
+    # (H100, PERF.md section 6).  A wrong recurrence or mask moves logits
+    # by their own scale.
+    logit_tol=0.5,
+    # The same for every k/v cache entry (12 attention layers): measured
+    # 0.121 and 0.131 at entries up to 5.4 (bf16 ulp 0.031) ...
+    cache_tol=0.4,
+    # ... and for every RG-LRU state entry, h and conv (26 layers):
+    # measured 0.141 and 0.109 at entries up to 4.8.
+    state_tol=0.4,
+    reduced_lens=(1, 7, 30, 40, 55),
+    workload=WL.Workload(n_requests=16, prompt_lens=(16, 1920),
+                         new_tokens=(32, 64), seed=0),
+    extra_prompts=(1, 129, 1024, 1984))
 # Flash attention in bf16 against the plain version on f32 copies of its
 # inputs: one bf16 rounding of the output (relative 2**-9) and f32 sums.
 FLASH_F32_RTOL, FLASH_F32_ATOL = 8e-3, 2e-3
@@ -278,13 +353,16 @@ def phase_kernels(dev, strat, leaves) -> dict:
     return res
 
 
-def flash_bound(B, S, T_, H, KV, hd, dtype, causal) -> tuple[float, str]:
+def flash_bound(B, S, T_, H, KV, hd, dtype, causal,
+                window=None) -> tuple[float, str]:
     """The least time for one attention call on these inputs: the larger
     of its operations over the peak rate for the input dtype (2 FLOPs per
     multiply-add, QK and PV, over the (query, key) pairs the mask keeps,
-    counted as the block-level causal skip sees them: keys 0..qpos) and its
-    bytes (q, k, v read once, o written once) over HBM bandwidth."""
-    pairs = (sum(min(qp + 1, T_) for qp in range(S)) if causal else S * T_)
+    counted as the block-level causal skip sees them: keys 0..qpos, and at
+    most ``window`` of them) and its bytes (q, k, v read once, o written
+    once) over HBM bandwidth."""
+    pairs = (sum(min(qp + 1, T_, window or T_) for qp in range(S))
+             if causal else S * T_)
     flops = 4 * B * H * hd * pairs
     nbytes = torch.finfo(dtype).bits // 8 * (2 * B * S * H * hd
                                              + 2 * B * T_ * KV * hd)
@@ -294,69 +372,160 @@ def flash_bound(B, S, T_, H, KV, hd, dtype, causal) -> tuple[float, str]:
                                        else "bytes")
 
 
+def _flash_inputs(gen, dev, S, T_, H, KV, hd, dt):
+    return [torch.randn(shape, generator=gen, device=dev).to(dt)
+            for shape in ((1, S, H, hd), (1, T_, KV, hd), (1, T_, KV, hd))]
+
+
+def _flash_check(what, q, k, v, causal=True, window=None) -> float:
+    """The kernel against its plain version at the tolerances of
+    tests/test_kernels.py; returns the largest error."""
+    got = K.flash_attention(q, k, v, causal=causal, window=window)
+    want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    # tests/test_kernels.py: 2e-5 for f32, 2e-2 for bf16 (and f16)
+    t = 2e-5 if q.dtype == torch.float32 else 2e-2
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=t, atol=t,
+        msg=lambda m: f"flash_attention {what}: {m}")
+    return err
+
+
+def _flash_path_shape(what, q, k, v, window=None) -> dict:
+    """A main-path shape (bf16, causal): checked against the plain version
+    and against the plain version on f32 copies, then timed beside the
+    plain version, SDPA and the bound."""
+    err = _flash_check(what, q, k, v, window=window)
+    # the plain version rounds p to bf16 before the PV product and the
+    # kernel does not, so 2e-2 is loose at long rows (|o| ~ 0.05 at
+    # S=2048); against the plain version on f32 copies (no rounding but
+    # the inputs') the kernel is held to about one bf16 ulp of o
+    got = K.flash_attention(q, k, v, window=window)
+    want32 = R.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   window=window)
+    err32 = float((got.float() - want32).abs().max())
+    torch.testing.assert_close(
+        got.float(), want32, rtol=FLASH_F32_RTOL, atol=FLASH_F32_ATOL,
+        msg=lambda m: f"flash_attention {what} vs f32 copies: {m}")
+    ms = time_ms(lambda: K.flash_attention(q, k, v, window=window))
+    plain = time_ms(lambda: R.flash_attention_ref(q, k, v, window=window))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # the window is no shorter than the sequence at the timed shapes, so
+    # a causal SDPA computes the same function
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    (_, S, H, hd), KV = q.shape, k.shape[2]
+    bound, by = flash_bound(1, S, S, H, KV, hd, q.dtype, True, window)
+    print(f"kernel flash_attention {what} q {tuple(q.shape)} kv "
+          f"{tuple(k.shape)} causal: max_abs_err={err:.3e} (vs f32 copies "
+          f"{err32:.3e}, max |o| {float(want32.abs().max()):.3f}) "
+          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+          f"bound_ms={bound:.5f} ({by})")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+
+
 def phase_flash(dev) -> dict:
-    """Flash attention against its plain version at the serving path's
-    prefill shapes and at off-path cases; timed per launch at the path's
-    shapes.  Returns the numbers at S=2048, the largest prefill, with the
-    largest error over all path shapes."""
+    """Flash attention against its plain version at tinyllama's prefill
+    shapes and at off-path cases; timed per launch at the path's shapes.
+    Returns the numbers at S=2048, the largest prefill, with the largest
+    error over all path shapes."""
     gen = torch.Generator(device=dev).manual_seed(2)
-
-    def inputs(S, T_, H, KV, hd, dt):
-        return [torch.randn(shape, generator=gen, device=dev).to(dt)
-                for shape in ((1, S, H, hd), (1, T_, KV, hd), (1, T_, KV, hd))]
-
-    def check(what, q, k, v, causal=True, window=None) -> float:
-        got = K.flash_attention(q, k, v, causal=causal, window=window)
-        want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        # tests/test_kernels.py: 2e-5 for f32, 2e-2 for bf16 (and f16)
-        t = 2e-5 if q.dtype == torch.float32 else 2e-2
-        err = float((got.float() - want.float()).abs().max())
-        torch.testing.assert_close(
-            got.float(), want.float(), rtol=t, atol=t,
-            msg=lambda m: f"flash_attention {what}: {m}")
-        return err
-
-    res = {}
-    for S in FLASH_SEQS:
-        q, k, v = inputs(S, S, 32, 4, 64, torch.bfloat16)
-        err = check(f"bf16 S={S}", q, k, v)
-        # the plain version rounds p to bf16 before the PV product and the
-        # kernel does not, so 2e-2 is loose at long rows (|o| ~ 0.05 at
-        # S=2048); against the plain version on f32 copies (no rounding
-        # but the inputs') the kernel is held to about one bf16 ulp of o
-        got = K.flash_attention(q, k, v)
-        want32 = R.flash_attention_ref(q.float(), k.float(), v.float())
-        err32 = float((got.float() - want32).abs().max())
-        torch.testing.assert_close(
-            got.float(), want32, rtol=FLASH_F32_RTOL, atol=FLASH_F32_ATOL,
-            msg=lambda m: f"flash_attention bf16 S={S} vs f32 copies: {m}")
-        ms = time_ms(lambda: K.flash_attention(q, k, v))
-        plain = time_ms(lambda: R.flash_attention_ref(q, k, v))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound, by = flash_bound(1, S, S, 32, 4, 64, q.dtype, True)
-        res[S] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                  "bound_ms": bound, "bound_by": by, "max_abs_err": err}
-        print(f"kernel flash_attention bf16 q (1,{S},32,64) kv (1,{S},4,64) "
-              f"causal: max_abs_err={err:.3e} (vs f32 copies {err32:.3e}, "
-              f"max |o| {float(want32.abs().max()):.3f}) ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-              f"bound_ms={bound:.5f} ({by})")
+    res = {S: _flash_path_shape(f"bf16 S={S}", *_flash_inputs(
+        gen, dev, S, S, 32, 4, 64, torch.bfloat16)) for S in FLASH_SEQS}
     for what, S, T_, H, KV, hd, dt, causal, window in (
             ("f32", 129, 129, 32, 4, 64, torch.float32, True, None),
             ("f16", 1000, 1000, 32, 4, 64, torch.float16, True, None),
             ("hd 128", 1000, 1000, 16, 2, 128, torch.bfloat16, True, None),
             ("window 128", 1000, 1000, 32, 4, 64, torch.bfloat16, True, 128),
             ("non-causal", 129, 300, 32, 4, 64, torch.bfloat16, False, None)):
-        err = check(what, *inputs(S, T_, H, KV, hd, dt), causal=causal,
-                    window=window)
+        err = _flash_check(what, *_flash_inputs(gen, dev, S, T_, H, KV, hd,
+                                                dt),
+                           causal=causal, window=window)
         print(f"kernel flash_attention {what} (S={S}, T={T_}, H={H}, "
               f"KV={KV}, hd={hd}): max_abs_err={err:.3e} within tolerance")
     main = dict(res[max(FLASH_SEQS)])
     main["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
     return main
+
+
+def phase_flash_recurrentgemma(dev) -> float:
+    """Flash attention at recurrentgemma-9b's local attention: 16 query
+    heads over 1 KV head at hd 256, window 2048, at the prefill lengths and
+    past the window.  Returns the largest error against the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cfg = get_config(RG_ARCH)
+    H, KV, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    errs = [_flash_path_shape(
+        f"bf16 S={S} window {w}",
+        *_flash_inputs(gen, dev, S, S, H, KV, hd, torch.bfloat16),
+        window=w)["max_abs_err"] for S in (1, 129, 1984, 2048)]
+    for dt in (torch.bfloat16, torch.float32):
+        err = _flash_check(f"S=3000 window {w} {dt}", *_flash_inputs(
+            gen, dev, 3000, 3000, H, KV, hd, dt), window=w)
+        errs.append(err)
+        print(f"kernel flash_attention S=3000 past the window {w} "
+              f"(H={H}, KV={KV}, hd={hd}, {dt}): max_abs_err={err:.3e} "
+              f"within tolerance")
+    return max(errs)
+
+
+def phase_rglru(dev) -> dict:
+    """The RG-LRU kernel against its plain version at recurrentgemma-9b's
+    prefill shapes and at off-path cases; timed at S=2048 beside its plain
+    version and its bound."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    L = get_config(RG_ARCH).recurrent.lru_width
+
+    def inputs(B, S, L, dt, lam_dt=None):
+        return (torch.randn(B, S, L, generator=gen, device=dev).to(dt),
+                torch.rand(B, S, L, generator=gen, device=dev).to(dt),
+                torch.rand(B, S, L, generator=gen, device=dev).to(dt),
+                torch.linspace(2.0, 6.0, L, device=dev).to(lam_dt or dt))
+
+    def check(what, args) -> float:
+        got = K.rglru_scan(*args)
+        want = R.rglru_ref(*args)
+        torch.cuda.synchronize()
+        # tests/test_kernels.py: 2e-5 for f32, 2e-2 for bf16
+        t = 2e-5 if got.dtype == torch.float32 else 2e-2
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t,
+                                   msg=lambda m: f"rglru_scan {what}: {m}")
+        return err
+
+    errs = {}
+    for S in RG_SEQS:
+        args = inputs(1, S, L, torch.bfloat16)
+        errs[S] = check(f"bf16 S={S}", args)
+        print(f"kernel rglru_scan bf16 (1,{S},{L}): max_abs_err="
+              f"{errs[S]:.3e} within 2e-2")
+    for what, B, S, Lw, dt, lam_dt in (
+            ("f32", 1, 1024, L, torch.float32, None),
+            ("B=2", 2, 300, L, torch.bfloat16, None),
+            ("L=1000", 1, 129, 1000, torch.bfloat16, torch.float32),
+            ("f32 B=2 L=1000", 2, 129, 1000, torch.float32, torch.bfloat16)):
+        err = check(what, inputs(B, S, Lw, dt, lam_dt))
+        print(f"kernel rglru_scan {what} ({B},{S},{Lw}) {dt}: max_abs_err="
+              f"{err:.3e} within tolerance")
+    args = inputs(1, max(RG_SEQS), L, torch.bfloat16)
+    ms = time_ms(lambda: K.rglru_scan(*args))
+    plain = time_ms(lambda: R.rglru_ref(*args), reps=5)
+    n = args[0].numel()
+    nbytes = 4 * n * args[0].element_size() + L * args[3].element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = RGLRU_OPS_PER_ELEM * n / F32_FLOP_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernel rglru_scan bf16 (1,{max(RG_SEQS)},{L}): ms={ms:.4f} "
+          f"plain_ms={plain:.4f} "
+          f"bound_ms={bound:.5f} ({by}, {nbytes / 1e6:.1f} MB) "
+          f"library_ms=none")
+    return {"ms": ms, "plain_ms": plain, "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "max_abs_err": max(errs.values())}
 
 
 def phase_training(dev, tmp: str, strat, leaves) -> tuple[dict, str]:
@@ -454,74 +623,94 @@ def _engine_requests(vocab: int, seed: int, lens, new: int) -> list:
         np.int32), max_new_tokens=new) for i, n in enumerate(lens)]
 
 
-def phase_serving_checks(dev, params, cfg) -> None:
+def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
     """The serving path's results against references: the engine on the
-    card against the engine on the CPU (reduced tinyllama, f32), and full
-    tinyllama-1.1b prefill with the kernel against prefill without it."""
+    card against the engine on the CPU (the reduced model, f32), and full
+    ``prefill`` with the kernels against ``prefill`` without them, both
+    held against a run with f32 weights."""
     rcfg = cfg.reduced()
+    rcache = min(96, rcfg.window or 96)
     cpu_params = ST.init_params(rcfg, seed=0, device="cpu")
     outs = {}
     for name, p in (("cuda", T.map(lambda a: a.to(dev), cpu_params)),
                     ("cpu", cpu_params)):
-        eng = ENG.ServeEngine(p, rcfg, max_slots=3, cache_len=96)
-        for r in _engine_requests(rcfg.vocab, 3, (1, 7, 40, 64, 65),
-                                  8):
+        eng = ENG.ServeEngine(p, rcfg, max_slots=3, cache_len=rcache)
+        for r in _engine_requests(rcfg.vocab, 3, cell.reduced_lens, 8):
             eng.submit(r)
         outs[name] = {r.rid: r.output for r in eng.run_to_completion()}
-    if outs["cuda"] != outs["cpu"] or len(outs["cpu"]) != 5:
+    n = len(cell.reduced_lens)
+    if outs["cuda"] != outs["cpu"] or len(outs["cpu"]) != n:
         raise AssertionError(f"reduced engine: cuda {outs['cuda']} != cpu "
                              f"{outs['cpu']}")
-    print(f"reduced tinyllama engine, 5 requests over 3 slots: cuda greedy "
-          f"tokens equal cpu's ({sum(map(len, outs['cpu'].values()))} "
-          f"tokens)")
+    print(f"reduced {cell.arch} engine, {n} requests over 3 slots, cache "
+          f"{rcache}: cuda greedy tokens equal cpu's "
+          f"({sum(map(len, outs['cpu'].values()))} tokens)")
+
+    def diffs(a, b) -> dict:
+        """Largest |difference| of the k/v leaves and of the RG-LRU state
+        leaves of two cache trees."""
+        out = {"cache": 0.0, "state": 0.0}
+        for (path, x), y in zip(T.leaves_with_paths(a), T.leaves(b)):
+            kind = "cache" if path.endswith(("['k']", "['v']")) else "state"
+            out[kind] = max(out[kind],
+                            float((x.float() - y.float()).abs().max()))
+        return out
 
     # the same weights in f32 (TF32 off): how far each bf16 path lies from
     # a run that rounds nowhere but in its inputs
     params32 = T.map(lambda a: a.float(), params)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    for S in (129, 2048):
+    for S in cell.check_seqs:
         toks = torch.from_numpy(np.random.default_rng(S).integers(
             0, cfg.vocab, (1, S))).to(dev)
         with torch.no_grad():
-            lk, ck = ST.prefill(params, cfg, toks, CACHE_LEN,
+            lk, ck = ST.prefill(params, cfg, toks, cell.cache_len,
                                 use_kernels=True)
-            lp, cp = ST.prefill(params, cfg, toks, CACHE_LEN)
-            l32, c32 = ST.prefill(params32, cfg32, toks, CACHE_LEN)
+            lp, cp = ST.prefill(params, cfg, toks, cell.cache_len)
+            l32, c32 = ST.prefill(params32, cfg32, toks, cell.cache_len)
         if lk.shape != (1, cfg.vocab) or not bool(torch.isfinite(lk).all()):
             raise AssertionError(f"prefill S={S}: logits {tuple(lk.shape)} "
                                  f"not finite or misshapen")
         diff = float((lk.float() - lp.float()).abs().max())
-        def cache_diff(a, b):
-            return max(float((a[0][n].float() - b[0][n].float()).abs().max())
-                       for n in ("k", "v"))
-
-        cdiff = cache_diff(ck, cp)
+        dkp, dk32, dp32 = diffs(ck, cp), diffs(ck, c32), diffs(cp, c32)
+        scale = diffs(c32, T.map(torch.zeros_like, c32))
         e_k = float((lk.float() - l32).abs().max())
         e_p = float((lp.float() - l32).abs().max())
-        print(f"prefill {ARCH} S={S}: max |logit| {float(lp.abs().max()):.3f}"
-              f", kernel vs dense max |diff| {diff:.4e} (tolerance "
-              f"{PREFILL_LOGIT_TOL}); cache max |entry| "
-              f"{max(float(c32[0][n].abs().max()) for n in ('k', 'v')):.3f}, "
-              f"kernel vs dense max |diff| {cdiff:.4e} (tolerance "
-              f"{PREFILL_CACHE_TOL}); against f32 weights: logits kernel "
-              f"{e_k:.4e}, dense {e_p:.4e}, cache kernel "
-              f"{cache_diff(ck, c32):.4e}, dense {cache_diff(cp, c32):.4e}; "
+        print(f"prefill {cell.arch} S={S}: max |logit| "
+              f"{float(lp.abs().max()):.3f}, kernel vs dense max |diff| "
+              f"{diff:.4e} (tolerance {cell.logit_tol}); k/v cache max "
+              f"|entry| {scale['cache']:.3f}, kernel vs dense max |diff| "
+              f"{dkp['cache']:.4e} (tolerance {cell.cache_tol}); against f32 "
+              f"weights: logits kernel {e_k:.4e}, dense {e_p:.4e}, cache "
+              f"kernel {dk32['cache']:.4e}, dense {dp32['cache']:.4e}; "
               f"argmax {int(lk.argmax())} / {int(lp.argmax())} / "
               f"{int(l32.argmax())} (kernel / dense / f32)")
-        if not diff <= PREFILL_LOGIT_TOL:
+        if cell.state_tol is not None:
+            print(f"prefill {cell.arch} S={S}: RG-LRU state (h, conv) max "
+                  f"|entry| {scale['state']:.3f}, kernel vs dense max |diff| "
+                  f"{dkp['state']:.4e} (tolerance {cell.state_tol}); "
+                  f"against f32 weights: kernel {dk32['state']:.4e}, dense "
+                  f"{dp32['state']:.4e}")
+            if not dkp["state"] <= cell.state_tol:
+                raise AssertionError(f"prefill S={S}: kernel RG-LRU states "
+                                     f"differ from dense by {dkp['state']} "
+                                     f"> {cell.state_tol}")
+        if not diff <= cell.logit_tol:
             raise AssertionError(f"prefill S={S}: kernel logits differ from "
-                                 f"dense by {diff} > {PREFILL_LOGIT_TOL}")
-        if not cdiff <= PREFILL_CACHE_TOL:
+                                 f"dense by {diff} > {cell.logit_tol}")
+        if not dkp["cache"] <= cell.cache_tol:
             raise AssertionError(f"prefill S={S}: kernel caches differ from "
-                                 f"dense by {cdiff} > {PREFILL_CACHE_TOL}")
-        # the kernel (f32 probabilities) adds no error of its own to the
-        # bf16 model: it lies no further from the f32 run than twice the
-        # dense bf16 path does
+                                 f"dense by {dkp['cache']} > "
+                                 f"{cell.cache_tol}")
+        # the kernels (f32 probabilities, f32 recurrence) add no error of
+        # their own to the bf16 model: the kernel path lies no further from
+        # the f32 run than twice the dense bf16 path does
         if not e_k <= 2 * e_p:
             raise AssertionError(f"prefill S={S}: kernel path {e_k} from "
                                  f"the f32 run, dense path {e_p}")
         del ck, cp, c32
     del params32
+    torch.cuda.empty_cache()
 
     for use_kernels in (True, False):
         times = []
@@ -529,27 +718,28 @@ def phase_serving_checks(dev, params, cfg) -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.no_grad():
-                ST.prefill(params, cfg, toks, CACHE_LEN,
+                ST.prefill(params, cfg, toks, cell.cache_len,
                            use_kernels=use_kernels)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        print(f"prefill {ARCH} 2048 tokens, use_kernels={use_kernels}: "
-              f"{statistics.median(times) * 1e3:.1f} ms (median of 3, host "
-              f"clock, synced)")
-    phase_decode_trace(dev, params, cfg)
+        print(f"prefill {cell.arch} {toks.shape[1]} tokens, use_kernels="
+              f"{use_kernels}: {statistics.median(times) * 1e3:.1f} ms "
+              f"(median of 3, host clock, synced)")
+    phase_decode_trace(dev, params, cfg, cell.cache_len)
 
 
-def phase_decode_trace(dev, params, cfg, steps: int = 5) -> None:
+def phase_decode_trace(dev, params, cfg, cache_len: int,
+                       steps: int = 5) -> None:
     """Where a decode step's time goes: ``decode_step`` over full slots
-    (8 slots at positions 64..1856 of a 4096 cache), timed on the host
-    clock, then traced with ``torch.profiler`` (printed only).  The idle
+    (8 slots at positions 64..1856 of the cache), timed on the host clock,
+    then traced with ``torch.profiler`` (printed only).  The idle
     share is read from the trace alone: the device's busy time (the union
     of its activities) over the span from the first one's start to the
     last one's end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    caches = ST.init_cache(cfg, SLOTS, CACHE_LEN, device=dev)
+    caches = ST.init_cache(cfg, SLOTS, cache_len, device=dev)
     tok = torch.zeros(SLOTS, dtype=torch.long, device=dev)
     pos = torch.arange(SLOTS, device=dev) * 256 + 64
 
@@ -583,7 +773,8 @@ def phase_decode_trace(dev, params, cfg, steps: int = 5) -> None:
         reach = max(reach, b)
     wall = spans[-1][1] - spans[0][0] if spans else 0.0
     idle = f"{100 * (1 - busy / wall):.1f}%" if wall else "not measured"
-    print(f"decode step, {SLOTS} slots: {host_ms:.2f} ms per step (host "
+    print(f"decode step {cfg.name}, {SLOTS} slots: {host_ms:.2f} ms per "
+          f"step (host "
           f"clock, 10 steps, synced); traced {steps} steps: device busy "
           f"{busy / 1e3 / steps:.2f} ms of {wall / 1e3 / steps:.2f} ms per "
           f"step (first to last device activity), idle {idle}")
@@ -599,16 +790,19 @@ def phase_decode_trace(dev, params, cfg, steps: int = 5) -> None:
     del caches
 
 
-def phase_serving(dev, params, cfg) -> int:
-    """The serving path: 35 requests through ``ServeEngine`` on full
-    tinyllama-1.1b.  Returns the flash-attention launches of that run."""
-    wl = WL.Workload(n_requests=32, prompt_lens=(16, 2048),
-                     new_tokens=(32, 64), seed=0)
+def phase_serving(dev, params, cfg, cell: Serving) -> dict:
+    """The serving path: the cell's requests through ``ServeEngine``, all
+    submitted at once.  Returns the kernels' launches of that run."""
+    wl = cell.workload
     reqs = WL.materialize_requests(wl, cfg.vocab)
-    for r in _engine_requests(cfg.vocab, 1, (1, 129, 2048), 32):
+    for r in _engine_requests(cfg.vocab, 1, cell.extra_prompts, 32):
         r.rid += len(wl.requests())
         reqs.append(r)
-    eng = ENG.ServeEngine(params, cfg, max_slots=SLOTS, cache_len=CACHE_LEN)
+    for r in reqs:
+        if len(r.prompt) + r.max_new_tokens > cell.cache_len - 1:
+            raise AssertionError(f"request {r.rid} does not fit the cache")
+    eng = ENG.ServeEngine(params, cfg, max_slots=SLOTS,
+                          cache_len=cell.cache_len)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -630,17 +824,22 @@ def phase_serving(dev, params, cfg) -> int:
             raise AssertionError(f"serving: request {r.rid} gave "
                                  f"{len(r.output)} tokens, want "
                                  f"{r.max_new_tokens} in [0, {cfg.vocab})")
-    want = {name: 0 for name in SYNC_KERNELS}
-    want["flash_attention"] = cfg.n_layers * len(reqs)
+    # each prefill runs flash attention once per attention layer and the
+    # RG-LRU kernel once per RG-LRU layer; nothing else launches a kernel
+    kinds = [cfg.block_kind(li) for li in range(cfg.n_layers)]
+    want = {name: 0 for name in REPLACES}
+    want["flash_attention"] = kinds.count("attn") * len(reqs)
+    want["rglru_scan"] = kinds.count("rec") * len(reqs)
     if launches != want:
         raise AssertionError(f"serving launches {launches}, want {want} "
-                             f"(flash attention once per layer per prefill)")
+                             f"(one per layer of the kernel's kind per "
+                             f"prefill)")
     m = eng.metrics()
     plens = [len(r.prompt) for r in reqs]
-    print(f"serving {ARCH}: {len(reqs)} requests (prompts {min(plens)}-"
-          f"{max(plens)} tokens, {sum(plens)} in all), {SLOTS} slots, cache "
-          f"{CACHE_LEN}, {cfg.dtype}; {m['tokens']} tokens in "
-          f"{m['decode_steps']} decode steps, {wall:.2f} s wall")
+    print(f"serving {cell.arch}: {len(reqs)} requests (prompts "
+          f"{min(plens)}-{max(plens)} tokens, {sum(plens)} in all), {SLOTS} "
+          f"slots, cache {cell.cache_len}, {cfg.dtype}; {m['tokens']} tokens "
+          f"in {m['decode_steps']} decode steps, {wall:.2f} s wall")
     print(f"serving metrics: ttft p50 {m['ttft_p50_s'] * 1e3:.1f} ms, p99 "
           f"{m['ttft_p99_s'] * 1e3:.1f} ms; tpot p50 "
           f"{m['tpot_p50_s'] * 1e3:.2f} ms, p99 {m['tpot_p99_s'] * 1e3:.2f} "
@@ -648,7 +847,7 @@ def phase_serving(dev, params, cfg) -> int:
           f"{m['latency_p99_s']:.2f} s; {m['tokens_per_s']:.1f} tokens/s "
           f"over the span; max_memory_allocated {peak / 2**30:.2f} GiB")
     print(f"launches on the serving path: {launches}")
-    return launches["flash_attention"]
+    return launches
 
 
 def main() -> int:
@@ -664,15 +863,41 @@ def main() -> int:
     strat = TS.GradSyncStrategy.size_capped(leaves)
     res = phase_kernels(dev, strat, leaves)
     res["flash_attention"] = phase_flash(dev)
+    res["rglru_scan"] = phase_rglru(dev)
+    res["flash_attention"]["max_abs_err"] = max(
+        res["flash_attention"]["max_abs_err"],
+        phase_flash_recurrentgemma(dev))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         launches, plan = phase_training(dev, tmp, strat, leaves)
         phase_trace(plan)
     torch.cuda.empty_cache()
+
     cfg = get_config(ARCH)
     params = ST.init_params(cfg, seed=0, device=dev)
-    phase_serving_checks(dev, params, cfg)
-    launches["flash_attention"] = phase_serving(dev, params, cfg)
+    phase_serving_checks(dev, params, cfg, TINYLLAMA)
+    served = phase_serving(dev, params, cfg, TINYLLAMA)
+    del params
+    torch.cuda.empty_cache()
+
+    # full-size weights drawn on the card: 9.4B normals from a CUDA
+    # generator, where the host would take about 95 s
+    cfg = get_config(RG_ARCH)
+    t1 = time.time()
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    torch.cuda.synchronize()
+    print(f"{RG_ARCH}: {sum(p.numel() for p in ST.leaves(params)) / 1e9:.2f}B"
+          f" parameters in {len(ST.leaves(params))} leaves drawn on the card "
+          f"in {time.time() - t1:.1f} s")
+    phase_serving_checks(dev, params, cfg, RECURRENTGEMMA)
+    served_rg = phase_serving(dev, params, cfg, RECURRENTGEMMA)
+    for name in REPLACES:
+        if name not in SYNC_KERNELS:
+            launches[name] = served[name] + served_rg[name]
+    print(f"launches on both serving paths: flash_attention "
+          f"{served['flash_attention']} ({ARCH}) + "
+          f"{served_rg['flash_attention']} ({RG_ARCH}), rglru_scan "
+          f"{served_rg['rglru_scan']} ({RG_ARCH})")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": res[name]["max_abs_err"],

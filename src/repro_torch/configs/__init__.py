@@ -1,12 +1,12 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-The dense configs of the reference registry, copied with their published
+The dense and RG-LRU hybrid configs of the reference registry, copied with their published
 widths and sources; reduced smoke-test variants come from
 ``cfg.reduced()``.
 """
 from __future__ import annotations
 
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, RecurrentConfig
 
 _CONFIGS = {
     # arXiv:2401.02385 — Llama-2 architecture, small
@@ -32,6 +32,16 @@ _CONFIGS = {
         d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048, vocab=32768,
         norm="layer", act="relu", glu=False, rope_frac=0.0,
         source="arXiv:1706.03762 (Transformer-base; DisCo benchmark model)"),
+    # Griffin hybrid: (rec, rec, local-attn) cycles, RG-LRU width 4096,
+    # local attention window 2048 with 16 heads over 1 KV head, GeGLU
+    "recurrentgemma-9b": ModelConfig(
+        name="recurrentgemma-9b", arch_type="hybrid", n_layers=38,
+        d_model=4096, n_heads=16, n_kv_heads=1, head_dim=256, d_ff=12288,
+        vocab=256000, act="gelu", glu=True, window=2048,
+        tie_embeddings=True,
+        recurrent=RecurrentConfig(lru_width=4096, conv_width=4,
+                                  pattern=("rec", "rec", "attn")),
+        source="arXiv:2402.19427 (Griffin / RecurrentGemma-9B)"),
 }
 
 ARCHS = tuple(_CONFIGS)

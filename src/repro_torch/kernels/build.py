@@ -44,6 +44,7 @@ _SIGNATURES = {
     "repro_fused_unpack": [_P, _I, _LL, _LL, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
+    "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

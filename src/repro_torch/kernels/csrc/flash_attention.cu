@@ -16,21 +16,33 @@
 // takes any S and T: keys past T score -inf and so weigh exactly 0, and
 // rows past S are computed but not stored.
 //
-// What bounds it on this card: at the main path's largest shape
+// What bounds it on this card: at tinyllama's largest prefill shape
 // (tinyllama-1.1b prefill, B=1, S=T=2048, H=32, KV=4, hd=64, bf16, causal)
 // the work is 4*H*hd*S(S+1)/2 = 17.2 GFLOP against 2.1 MB of q, k, v and o:
 // about 8,000 operations per byte, far above the card's ~295, so it is
 // bound by operations.  At the bf16 tensor-core peak (989 TFLOP/s) that is
 // 0.017 ms.  This kernel runs its FMAs on the CUDA cores in f32 (67 TFLOP/s
 // peak), so its own floor is ~0.26 ms; tensor cores (wgmma fed by TMA) are
-// the later step that closes the gap.
+// the later step that closes the gap.  At recurrentgemma-9b's local
+// attention (S=T=2048, H=16, KV=1, hd=256, causal) the work is 34.4 GFLOP:
+// 0.035 ms at the tensor-core peak, ~0.51 ms on the CUDA cores.  There it
+// took 2.98 ms (11.5 TFLOP/s; chip_smoke.py phase (e), NVIDIA H100 80GB
+// HBM3, 700 W), slower than its plain version's two cuBLAS products
+// (1.51 ms): every FMA reads its k or v operand from shared memory, one
+// 16-byte load per four FMAs, so the kernel is bound by shared-memory
+// bandwidth near a quarter of the f32 peak.
 //
 // Design.  One block covers one (batch, KV head, block of BQ query rows) and
 // all G query heads of that KV head, as each Pallas program does, so each
-// K/V tile is read from memory once per group of heads.  NSUB = hd/16
+// K/V tile is read from memory once per group of heads.  BQ is as many rows
+// as fit kMaxThreads threads: at G=16 and hd=256 (16 x 16 threads per row)
+// that is one row per block, which still stages each K/V tile once for 16
+// heads, so staging stays a small share of the block's work.  NSUB = hd/16
 // threads share one (query row, head) pair: each owns 16 of its head dims,
 // holding that slice of q and of the f32 accumulator in registers.  K and V
-// tiles of kBK keys are staged in shared memory as f32; a thread reads its
+// tiles of BK keys (64, or 32 at hd 256, so the two f32 tiles take 64 KiB
+// at most and three blocks still fit an SM) are staged in shared memory as
+// f32; a thread reads its
 // dims of a key with 16-byte loads that all pairs of a warp share
 // (broadcast, no bank conflicts).  A dot product is summed across the NSUB
 // threads with warp shuffles.  Keys are scored kChunk at a time, so the
@@ -51,7 +63,8 @@ namespace {
 constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
 constexpr int kMaxThreads = 256;   // threads per block, at most
 constexpr int kDims = 16;          // head dims owned by one thread
-constexpr int kBK = 64;            // keys per shared-memory tile
+// keys per shared-memory tile: two f32 tiles of kBK x HD stay <= 64 KiB
+template <int HD> constexpr int kBK = HD >= 256 ? 32 : 64;
 constexpr int kChunk = 16;         // keys per online-softmax update
 constexpr float kF32Min = -3.40282346638528859812e+38f;  // finfo(f32).min
 
@@ -73,8 +86,8 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// Stage rows [t0, t0 + kBK) of one KV head of k (or v) into `dst` as f32,
-// kBK x HD; rows at or past T are zero.  With `vec`, the rows are 16-byte
+// Stage rows [t0, t0 + BK) of one KV head of k (or v) into `dst` as f32,
+// BK x HD; rows at or past T are zero.  With `vec`, the rows are 16-byte
 // aligned and move as 16-byte loads.
 template <typename T, int HD>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
@@ -82,9 +95,10 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
                                            long long row0_off, int t0, int T_,
                                            int row_stride, bool vec) {
   constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int BK = kBK<HD>;
   if (vec) {
     constexpr int kVecPerRow = HD / kPer;
-    for (int e = threadIdx.x; e < kBK * kVecPerRow; e += blockDim.x) {
+    for (int e = threadIdx.x; e < BK * kVecPerRow; e += blockDim.x) {
       const int j = e / kVecPerRow, c = e % kVecPerRow;
       float f[kPer];
       if (t0 + j < T_) {
@@ -104,7 +118,7 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
                              f[4 * i + 3]);
     }
   } else {
-    for (int e = threadIdx.x; e < kBK * HD; e += blockDim.x) {
+    for (int e = threadIdx.x; e < BK * HD; e += blockDim.x) {
       const int j = e / HD, d = e % HD;
       const long long at = row0_off + (long long)(t0 + j) * row_stride + d;
       dst[e] = t0 + j < T_ ? to_f32(src[at]) : 0.f;
@@ -120,9 +134,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float scale, int vec) {
   constexpr int NSUB = HD / kDims;     // threads per (row, head) pair
   constexpr int kV4 = kDims / 4;       // float4 slices per thread
+  constexpr int BK = kBK<HD>;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kBK * HD;
+  float* vs = ks + BK * HD;
 
   const int tid = threadIdx.x;
   const int sub = tid % NSUB;
@@ -157,12 +172,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row_stride = KV * HD;
   const long long kv0 = (long long)b * T_ * row_stride + (long long)kvh * HD;
 
-  for (int t0 = (k_lo / kBK) * kBK; t0 < k_hi; t0 += kBK) {
+  for (int t0 = (k_lo / BK) * BK; t0 < k_hi; t0 += BK) {
     __syncthreads();   // the previous tile is no longer read
     stage_tile<T, HD>(k, ks, kv0, t0, T_, row_stride, vec);
     stage_tile<T, HD>(v, vs, kv0, t0, T_, row_stride, vec);
     __syncthreads();
-    for (int c0 = 0; c0 < kBK && t0 + c0 < k_hi; c0 += kChunk) {
+    for (int c0 = 0; c0 < BK && t0 + c0 < k_hi; c0 += kChunk) {
       float s[kChunk];
       float mx = m;
 #pragma unroll
@@ -239,7 +254,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (G * NSUB > kMaxThreads) return cudaErrorInvalidConfiguration;
   const int BQ = kMaxThreads / (NSUB * G);
   const int threads = (BQ * G * NSUB + 31) / 32 * 32;
-  const size_t smem = 2 * kBK * HD * sizeof(float);
+  const size_t smem = 2 * kBK<HD> * HD * sizeof(float);
   auto kernel = flash_fwd_kernel<T, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -268,6 +283,9 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, T_, H, KV, causal, window, vec,
                             stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, S, T_, H, KV, causal, window, vec,
+                            stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -276,7 +294,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // o = attention(q, k, v) on `stream`.  dtype: 0 f32, 1 bf16, 2 f16 (q, k, v
-// and o alike); hd in {32, 64, 128}; H % KV == 0; window <= 0 means none;
+// and o alike); hd in {32, 64, 128, 256}; H % KV == 0; window <= 0 means none;
 // (hd / 16) * (H / KV) <= 256; vec: k and v start 16-byte aligned.
 // Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,

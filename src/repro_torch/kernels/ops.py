@@ -1,6 +1,7 @@
 """Wrappers of the port's CUDA kernels (port of the matching wrappers in
 ``repro/kernels/ops.py``): the gradient-sync staging kernels
-(``csrc/grad_sync.cu``) and flash attention (``csrc/flash_attention.cu``).
+(``csrc/grad_sync.cu``), flash attention (``csrc/flash_attention.cu``) and
+the RG-LRU scan (``csrc/rglru.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 * on CPU tensors, returns its plain PyTorch version from :mod:`.ref`;
@@ -273,7 +274,7 @@ fused_unpack.launches = 0
 
 
 # --------------------------------------------------------- flash attention
-FLASH_HEAD_DIMS = (32, 64, 128)
+FLASH_HEAD_DIMS = (32, 64, 128, 256)
 _FLASH_MAX_THREADS = 256    # kMaxThreads of csrc/flash_attention.cu
 
 
@@ -332,6 +333,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+# ------------------------------------------------------------------ RG-LRU
+def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+               lam: torch.Tensor) -> torch.Tensor:
+    """RG-LRU over (B,S,L) with the gate math fused in: a = exp(-8
+    softplus(lam) r), g = sqrt(max(1 - a^2, 1e-12)) i x, h_t = a_t h_{t-1}
+    + g_t from zero, as :func:`.ref.rglru_ref`.  x, r_gate and i_gate share
+    one dtype (f32, bf16 or f16) and shape; lam is (L,) in any of those
+    dtypes; any S and L.  The output is in x's dtype.  Forward only: on the
+    card it raises when autograd would need its gradient."""
+    from .build import load_library
+
+    if x.dim() != 3:
+        raise ValueError("rglru_scan: x must be (B, S, L)")
+    if r_gate.shape != x.shape or i_gate.shape != x.shape:
+        raise ValueError(f"rglru_scan: gates {tuple(r_gate.shape)}, "
+                         f"{tuple(i_gate.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    B, S, L = x.shape
+    if tuple(lam.shape) != (L,):
+        raise ValueError(f"rglru_scan: lam {tuple(lam.shape)} is not ({L},)")
+    for t in (x, r_gate, i_gate, lam):
+        _check_dtype(t, "rglru_scan")
+    if r_gate.dtype != x.dtype or i_gate.dtype != x.dtype:
+        raise TypeError("rglru_scan: x and the gates must share one dtype")
+    if not _on_cuda([x, r_gate, i_gate, lam], "rglru_scan"):
+        return _ref.rglru_ref(x, r_gate, i_gate, lam)
+    _check_contiguous([x, r_gate, i_gate, lam], "rglru_scan")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, r_gate, i_gate, lam)):
+        raise RuntimeError("rglru_scan: the CUDA kernel is forward only; "
+                           "call it under torch.no_grad()")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.repro_rglru_scan(
+            x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
+            lam.data_ptr(), out.data_ptr(), _CODES[x.dtype],
+            _CODES[lam.dtype], B, S, L,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error(lib, rc, "rglru_scan")
+    rglru_scan.launches += 1
+    return out
+
+
+rglru_scan.launches = 0
+
+
 def reset_launches() -> None:
-    for fn in (convert_copy, fused_pack, fused_unpack, flash_attention):
+    for fn in (convert_copy, fused_pack, fused_unpack, flash_attention,
+               rglru_scan):
         fn.launches = 0

@@ -4,7 +4,8 @@ oracles in ``repro/kernels/ref.py`` and of ``chunk_cuts`` in
 
 The CPU path of every kernel wrapper in :mod:`.ops` is one of these.  On
 the card the gradient-sync kernels are held bitwise equal to them, and the
-flash-attention kernel within the tolerances of ``tests/test_kernels.py``.
+flash-attention and RG-LRU kernels within the tolerances of
+``tests/test_kernels.py``.
 """
 from __future__ import annotations
 
@@ -77,3 +78,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype), v)
     return out.reshape(B, S, H, hd)
+
+
+def rglru_ref(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
+              lam: torch.Tensor) -> torch.Tensor:
+    """RG-LRU linear recurrence, sequential.  x, r_gate, i_gate: (B,S,L);
+    lam: (L,).  h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t) with
+    a_t = exp(-8 softplus(lam) r_t), h from zero.  As in the reference's
+    oracle, ``-8 * softplus(lam)`` is taken in lam's dtype and the rest of
+    the gate math and the state in f32; the output is in x's dtype."""
+    coef = (-8.0 * F.softplus(lam)).float()
+    log_a = coef[None, None, :] * r_gate.float()
+    a = torch.exp(log_a)
+    g = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
+        i_gate.float() * x.float())
+    h = torch.zeros_like(g[:, 0])
+    out = torch.empty_like(g)
+    for t in range(g.shape[1]):
+        h = a[:, t] * h + g[:, t]
+        out[:, t] = h
+    return out.to(x.dtype)

@@ -78,15 +78,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------- attention
+def _randn(gen: torch.Generator, shape) -> torch.Tensor:
+    """f32 normals from ``gen``, on its device; a CPU generator draws on
+    the default device (the host, or nothing at all under
+    ``torch.device("meta")``)."""
+    dev = None if gen.device.type == "cpu" else gen.device
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+
+
 def _dense(gen: torch.Generator, d_in: int, d_out: int,
            lead=()) -> torch.Tensor:
-    return (torch.randn((*lead, d_in, d_out), generator=gen,
-                        dtype=torch.float32) / math.sqrt(d_in))
+    return _randn(gen, (*lead, d_in, d_out)) / math.sqrt(d_in)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
-    """f32 attention weights on the host, from ``gen``; ``lead`` prepends
-    stacked dims."""
+    """f32 attention weights drawn from ``gen`` on its device; ``lead``
+    prepends stacked dims."""
     hd = cfg.hd
     p = {
         "wq": _dense(gen, cfg.d_model, cfg.n_heads * hd, lead),

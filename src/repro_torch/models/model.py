@@ -1,27 +1,35 @@
-"""Dense decoder pieces shared by the stacked model (port of
+"""Decoder pieces shared by the stacked model (port of
 ``repro/models/model.py``: ``init_layer``, ``_sinusoid``, ``_embed``,
-``_unembed``, ``_layer_fwd`` and ``init_cache``, dense attention blocks
-only)."""
+``_unembed``, ``_layer_fwd`` and ``init_cache``, for dense attention blocks
+and the RG-LRU blocks of the recurrent hybrid)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from . import layers as L
+from . import recurrent as R
 from .config import ModelConfig
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
-    """One dense block's f32 parameters on the host; ``lead`` prepends
-    stacked dims."""
+def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int,
+               lead=()) -> dict:
+    """Block ``li``'s f32 parameters, drawn from ``gen`` (as
+    ``layers._randn`` places them); ``lead`` prepends stacked dims.  An
+    ``attn`` block holds ``attn``, a ``rec`` block ``rec``; both hold the
+    norms and the MLP."""
     def norm():
         return {k: v.expand(*lead, -1).clone()
                 for k, v in L.init_norm(cfg, cfg.d_model, "cpu").items()}
 
-    return {"ln1": norm(),
-            "attn": L.init_attention(gen, cfg, lead),
-            "ln2": norm(),
-            "mlp": L.init_mlp(gen, cfg, lead)}
+    p = {"ln1": norm()}
+    if cfg.block_kind(li) == "rec":
+        p["rec"] = R.init_recurrent_block(gen, cfg, lead)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, lead)
+    p["ln2"] = norm()
+    p["mlp"] = L.init_mlp(gen, cfg, lead)
+    return p
 
 
 def _sinusoid(S: int, D: int, dtype, device) -> torch.Tensor:
@@ -50,18 +58,23 @@ def _unembed(params, cfg: ModelConfig, x):
 
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
                return_cache: bool = False, cache_len: int = 0,
-               use_kernels: bool = False):
-    """One dense block (pre-norm attention, then pre-norm MLP).  Returns
-    x, or (x, new_cache) when a cache is given or asked for, as
-    ``attention_fwd`` does.  ``use_kernels`` runs attention through the
-    flash-attention kernel."""
+               use_kernels: bool = False, li: int = 0):
+    """Block ``li`` (pre-norm attention or RG-LRU block, then pre-norm
+    MLP).  Returns x, or (x, new_cache) when a cache is given or asked for,
+    as ``attention_fwd`` does.  ``use_kernels`` runs attention through the
+    flash-attention kernel and the RG-LRU recurrence through its kernel."""
     want_cache = return_cache or cache is not None
     h = L.norm_fwd(p["ln1"], cfg, x)
-    r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache, pos=pos,
-                        window=cfg.window, use_flash=use_kernels,
-                        return_cache=return_cache, cache_len=cache_len)
-    attn_out, new_cache = r if want_cache else (r, None)
-    x = x + attn_out
+    if cfg.block_kind(li) == "rec":
+        r = R.recurrent_block_fwd(p["rec"], cfg, h, state=cache,
+                                  return_state=return_cache,
+                                  use_kernel=use_kernels)
+    else:
+        r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache,
+                            pos=pos, window=cfg.window, use_flash=use_kernels,
+                            return_cache=return_cache, cache_len=cache_len)
+    mix_out, new_cache = r if want_cache else (r, None)
+    x = x + mix_out
     h2 = L.norm_fwd(p["ln2"], cfg, x)
     x = x + L.mlp_fwd(p["mlp"], cfg, h2)
     return (x, new_cache) if want_cache else x
@@ -69,12 +82,23 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> list:
-    """Per-layer zero decode state: ``{"k", "v"}`` of (batch, size, KV, hd)
-    in ``cfg.dtype``, with size ``min(cache_len, window)`` for a sliding
-    window, as in the reference."""
+    """Per-layer zero decode state, as in the reference: an ``attn`` block
+    holds ``{"k", "v"}`` of (batch, size, KV, hd) in ``cfg.dtype``, with
+    size ``min(cache_len, window)`` for a sliding window; a ``rec`` block
+    holds ``{"h": (batch, L) f32, "conv": (batch, W-1, L) cfg.dtype}``."""
     dt = getattr(torch, cfg.dtype)
-    size = min(cache_len, cfg.window) if cfg.window else cache_len
-    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for li in range(cfg.n_layers):
+        if cfg.block_kind(li) == "rec":
+            Lw = cfg.recurrent.lru_width
+            caches.append({
+                "h": torch.zeros((batch, Lw), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((batch, cfg.recurrent.conv_width - 1, Lw),
+                                    dtype=dt, device=device)})
+            continue
+        size = min(cache_len, cfg.window) if cfg.window else cache_len
+        shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+        caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)})
+    return caches

@@ -1,24 +1,32 @@
-"""Stacked-parameter dense decoder (port of ``repro/models/stacked.py``).
+"""Stacked-parameter decoder (port of ``repro/models/stacked.py``).
 
-Parameters keep the reference's layout: homogeneous layers are stacked
-along a leading layer dim in ``params["groups"][0]``, and leaves are
-ordered as ``jax.tree.leaves`` orders them (:func:`leaves`), so a Plan's
-bucket indices name the same tensors in both packages.  For tinyllama that
-is 12 leaves: ``embed``, ``final_norm.scale``,
+Parameters keep the reference's layout: layers are split into homogeneous
+groups (:func:`layer_groups`), each stacked along a leading dim in
+``params["groups"]``, and leaves are ordered as ``jax.tree.leaves`` orders
+them (:func:`leaves`), so a Plan's bucket indices name the same tensors in
+both packages.  A dense model is one ``plain`` group of ``n_layers``; for
+tinyllama that is 12 leaves: ``embed``, ``final_norm.scale``,
 ``groups[0].attn.{wk,wo,wq,wv}``, ``groups[0].{ln1,ln2}.scale``,
-``groups[0].mlp.{w_down,w_gate,w_up}`` and ``lm_head``.
+``groups[0].mlp.{w_down,w_gate,w_up}`` and ``lm_head``.  A recurrent hybrid
+is a ``cycle`` group of whole pattern cycles plus a ``tail`` group of the
+layers left over, each holding one subtree ``b{j}`` per position of the
+cycle (recurrentgemma-9b: 12 x (rec, rec, attn) and a tail of (rec, rec),
+63 leaves).
 
-Where the reference scans the layer group, the port loops over the layers;
+Where the reference scans a layer group, the port loops over the layers;
 ``remat`` rematerialises each layer (and each cross-entropy chunk) in the
 backward through ``torch.utils.checkpoint``, as ``jax.checkpoint`` does in
 the reference.
 
 Serving: :func:`init_cache` keeps the reference's stacked cache layout (a
-list per layer group of ``{"k", "v"}``, each (n_layers, B, size, KV, hd)),
-:func:`prefill` returns the last position's logits and fresh caches, and
-:func:`decode_step` advances one token per row.  ``use_kernels=True`` runs
-attention through the flash-attention kernel, as the reference's
-``use_kernels`` runs its Pallas kernel; the train step never sets it.
+list per layer group, stacked like the parameters: ``{"k", "v"}`` of
+(count, B, size, KV, hd) for attention, ``{"h", "conv"}`` for RG-LRU
+blocks, under ``b{j}`` in a cycle), :func:`prefill` returns the last
+position's logits and fresh caches, and :func:`decode_step` advances one
+token per row, writing the caches in place.  ``use_kernels=True`` runs
+attention through the flash-attention kernel and the RG-LRU recurrence
+through its kernel, as the reference's ``use_kernels`` runs its Pallas
+kernels; the train step never sets it.
 """
 from __future__ import annotations
 
@@ -34,36 +42,82 @@ from .config import ModelConfig
 leaves = T.leaves
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
-    """Random parameters from a CPU ``torch.Generator(seed)`` (so a seed
-    gives the same weights on every device), in the reference's shapes and
-    dtypes: layer weights and norms in ``cfg.dtype``, the final norm in f32
-    (the reference leaves it uncast).  Each leaf is drawn in f32 on the
-    host, cast, and moved to ``device``."""
+def layer_groups(cfg: ModelConfig) -> list[dict]:
+    """Segments of homogeneous layers: ``[{"kind", "count", "start",
+    "cycle"}]``; a ``cycle`` or ``tail`` group holds ``count`` repeats of
+    ``cycle`` consecutive layers."""
+    if cfg.recurrent is not None:
+        cyc = len(cfg.recurrent.pattern)
+        n_cycles = cfg.n_layers // cyc
+        groups = []
+        if n_cycles:
+            groups.append({"kind": "cycle", "count": n_cycles, "start": 0,
+                           "cycle": cyc})
+        rem = cfg.n_layers - n_cycles * cyc
+        if rem:
+            groups.append({"kind": "tail", "count": 1,
+                           "start": n_cycles * cyc, "cycle": rem})
+        return groups
+    return [{"kind": "plain", "count": cfg.n_layers, "start": 0, "cycle": 1}]
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                draw_on_device: bool = False) -> dict:
+    """Random parameters in the reference's shapes and dtypes: layer
+    weights and norms in ``cfg.dtype``, the final norm in f32 (the
+    reference leaves it uncast).  Each leaf is drawn in f32 from a
+    ``torch.Generator(seed)``, cast, and moved to ``device``.  The generator
+    is on the CPU, so a seed gives the same weights on every device;
+    ``draw_on_device`` draws on ``device`` instead (other numbers, no host
+    round trip)."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev if draw_on_device else "cpu")
+    gen.manual_seed(seed)
+
+    def cast(tree):
+        return T.map(lambda a: a.to(device=dev, dtype=dt), tree)
+
     params: dict = {
-        "embed": (torch.randn((cfg.vocab, cfg.d_model), generator=gen)
-                  * 0.02).to(device=dev, dtype=dt),
+        "embed": cast(L._randn(gen, (cfg.vocab, cfg.d_model)) * 0.02),
         "final_norm": L.init_norm(cfg, cfg.d_model, dev),
-        "groups": [T.map(lambda a: a.to(device=dev, dtype=dt),
-                         M.init_layer(gen, cfg, (cfg.n_layers,)))],
+        "groups": [],
     }
+    for g in layer_groups(cfg):
+        lead = (g["count"],)
+        if g["kind"] == "plain":
+            params["groups"].append(cast(M.init_layer(gen, cfg, g["start"],
+                                                      lead)))
+        else:
+            params["groups"].append(
+                {f"b{j}": cast(M.init_layer(gen, cfg, g["start"] + j, lead))
+                 for j in range(g["cycle"])})
     if not cfg.tie_embeddings:
-        params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab),
-                                         generator=gen)
-                             * 0.02).to(device=dev, dtype=dt)
+        params["lm_head"] = cast(L._randn(gen, (cfg.d_model, cfg.vocab))
+                                 * 0.02)
     return params
 
 
+def _per_layer(groups: list, cfg: ModelConfig) -> list:
+    """Each layer's subtree of stacked ``groups`` (parameters or caches),
+    in layer order: views of the stacked leaves, so an in-place write lands
+    in the stack (each leaf is unbound once, so the backward stacks the
+    per-layer gradients once per leaf)."""
+    out = []
+    for g, tree in zip(layer_groups(cfg), groups):
+        per_leaf = [leaf.unbind(0) for leaf in T.leaves(tree)]
+        for c in range(g["count"]):
+            one = T.unflatten(tree, [u[c] for u in per_leaf])
+            if g["kind"] == "plain":
+                out.append(one)
+            else:
+                out += [one[f"b{j}"] for j in range(g["cycle"])]
+    return out
+
+
 def _layers(params, cfg: ModelConfig):
-    """Each layer's parameters: views of the stacked leaves (unbound once,
-    so the backward stacks the per-layer gradients once per leaf)."""
-    group = params["groups"][0]
-    per_leaf = [leaf.unbind(0) for leaf in T.leaves(group)]
-    return [T.unflatten(group, [u[li] for u in per_leaf])
-            for li in range(cfg.n_layers)]
+    """Each layer's parameters, in layer order."""
+    return _per_layer(params["groups"], cfg)
 
 
 def _embed_positions(params, cfg: ModelConfig, tokens):
@@ -71,7 +125,7 @@ def _embed_positions(params, cfg: ModelConfig, tokens):
     ``rope_frac == 0``, and the positions (S,)."""
     x = M._embed(params, cfg, tokens)
     S = x.shape[1]
-    if cfg.rope_frac == 0.0:
+    if cfg.rope_frac == 0.0 and cfg.recurrent is None:
         x = x + M._sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
     return x, torch.arange(S, device=x.device)
 
@@ -82,14 +136,15 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *,
     hidden states."""
     x, positions = _embed_positions(params, cfg, tokens)
 
-    def block(p, x):
-        return M._layer_fwd(p, cfg, x, positions, use_kernels=use_kernels)
+    def block(p, x, li):
+        return M._layer_fwd(p, cfg, x, positions, use_kernels=use_kernels,
+                            li=li)
 
-    for p in _layers(params, cfg):
+    for li, p in enumerate(_layers(params, cfg)):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, p, x, use_reentrant=False)
+            x = checkpoint(block, p, x, li, use_reentrant=False)
         else:
-            x = block(p, x)
+            x = block(p, x, li)
     return L.norm_fwd(params["final_norm"], cfg, x)
 
 
@@ -144,29 +199,41 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
 
 
 # ------------------------------------------------------------------- decode
-def _stack_caches(per_layer: list) -> list:
-    """Per-layer ``{"k", "v"}`` caches into the stacked layout: one group
-    of (n_layers, B, size, KV, hd) leaves."""
-    return [{name: torch.stack([c[name] for c in per_layer])
-             for name in ("k", "v")}]
+def _stack_caches(cfg: ModelConfig, per_layer: list) -> list:
+    """Per-layer caches into the stacked layout of :func:`layer_groups`:
+    each group's layers stacked along a new leading dim, under ``b{j}`` in
+    a cycle or tail group."""
+    out = []
+    for g in layer_groups(cfg):
+        if g["kind"] == "plain":
+            seg = per_layer[g["start"]:g["start"] + g["count"]]
+            out.append(T.map(lambda *a: torch.stack(a), *seg))
+            continue
+        group = {}
+        for j in range(g["cycle"]):
+            seg = [per_layer[g["start"] + c * g["cycle"] + j]
+                   for c in range(g["count"])]
+            group[f"b{j}"] = T.map(lambda *a: torch.stack(a), *seg)
+        out.append(group)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> list:
     """Zero decode caches in the reference's stacked layout."""
     dev = resolve_device(device)
-    return _stack_caches(M.init_cache(cfg, batch, cache_len, device=dev))
+    return _stack_caches(cfg, M.init_cache(cfg, batch, cache_len, device=dev))
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos):
     """One serving step.  ``token`` (B,) int; ``pos`` the position each row
     writes: a scalar, as in the reference, or (B,) for one per row.
-    Writes the new k/v into ``caches`` in place.  Returns (logits (B,
-    vocab), caches)."""
+    Writes the new k/v and recurrent states into ``caches`` in place.
+    Returns (logits (B, vocab), caches)."""
     x = M._embed(params, cfg, token[:, None])
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
-    if cfg.rope_frac == 0.0:
+    if cfg.rope_frac == 0.0 and cfg.recurrent is None:
         D = cfg.d_model
         dim = torch.arange(0, D, 2, device=x.device).float() / D
         ang = pos.float()[:, None] / torch.pow(10000.0, dim)
@@ -175,11 +242,9 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos):
         pe[:, 1::2] = torch.cos(ang).to(x.dtype)
         x = x + pe[:, None]
     positions = pos[:, None]
-    group = caches[0]
-    for li, p in enumerate(_layers(params, cfg)):
-        x, _ = M._layer_fwd(p, cfg, x, positions,
-                            cache={"k": group["k"][li], "v": group["v"][li]},
-                            pos=pos)
+    for li, (p, c) in enumerate(zip(_layers(params, cfg),
+                                    _per_layer(caches, cfg))):
+        x, _ = M._layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li)
     x = L.norm_fwd(params["final_norm"], cfg, x)
     return M._unembed(params, cfg, x)[:, 0], caches
 
@@ -187,12 +252,14 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos):
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
             use_kernels: bool = False):
     """Run a (B, S) prompt; returns the last position's logits (B, vocab)
-    and fresh caches of length ``cache_len`` holding the prompt's k/v."""
+    and fresh caches: the prompt's k/v in caches of length ``cache_len``,
+    and each RG-LRU block's last state."""
     x, positions = _embed_positions(params, cfg, tokens)
     per_layer = []
-    for p in _layers(params, cfg):
+    for li, p in enumerate(_layers(params, cfg)):
         x, c = M._layer_fwd(p, cfg, x, positions, return_cache=True,
-                            cache_len=cache_len, use_kernels=use_kernels)
+                            cache_len=cache_len, use_kernels=use_kernels,
+                            li=li)
         per_layer.append(c)
     x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
-    return M._unembed(params, cfg, x)[:, 0], _stack_caches(per_layer)
+    return M._unembed(params, cfg, x)[:, 0], _stack_caches(cfg, per_layer)

@@ -7,13 +7,20 @@ slots are retired and refilled.
 
 Two differences from the reference, neither of which changes a token:
 
-* Prefill runs attention through the flash-attention kernel
-  (``ST.prefill(..., use_kernels=True)``); the reference's engine leaves
-  ``use_kernels`` at False.  On CPU tensors the kernel's plain version runs.
+* Prefill runs attention through the flash-attention kernel and the RG-LRU
+  recurrence through its kernel (``ST.prefill(..., use_kernels=True)``);
+  the reference's engine leaves ``use_kernels`` at False.  On CPU tensors
+  the kernels' plain versions run.
 * Decode advances all slots in one batched call with one position per
   slot, where the reference vmaps a batch-1 step over the slots; each slot
-  computes what the reference's step computes.  The caches are updated in
-  place.
+  computes what the reference's step computes.  The caches (nested trees:
+  ``{"k", "v"}`` per attention block, ``{"h", "conv"}`` per RG-LRU block)
+  are updated in place.
+
+A model with a sliding window is served only at ``cache_len <= window``:
+the reference's prefill returns a cache of ``cache_len`` rows while its
+decode cache holds ``min(cache_len, window)``, so its engine fails on the
+first install past that; the port refuses such an engine when it is made.
 
 The engine runs on the device its parameters lie on and allocates its
 caches there.
@@ -28,6 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tree as T
 from ..models import stacked as ST
 from ..models.config import ModelConfig
 
@@ -80,6 +88,10 @@ class ServeEngine:
             cache_len = int(plan.cache_len) if plan is not None else 256
         if decode_batch is None and plan is not None:
             decode_batch = int(plan.decode_batch)
+        if cfg.window is not None and cache_len > cfg.window:
+            raise ValueError(f"cache_len {cache_len} exceeds the attention "
+                             f"window {cfg.window}: a windowed model is "
+                             f"served at cache_len <= window")
         self.plan = plan
         self.params = params
         self.cfg = cfg
@@ -124,18 +136,16 @@ class ServeEngine:
         only the ``n_valid`` real lanes back (padding lanes duplicate a real
         slot for the gather and are discarded)."""
         index = self._tensor(idx)
-        sub = [{name: leaf[:, index] for name, leaf in g.items()}
-               for g in self.caches]
+        sub = T.map(lambda leaf: leaf[:, index], self.caches)
         logits = self._decode(sub, tokens, positions)
-        for full, new in zip(self.caches, sub):
-            for name in full:
-                full[name][:, index[:n_valid]] = new[name][:, :n_valid]
+        for full, new in zip(T.leaves(self.caches), T.leaves(sub)):
+            full[:, index[:n_valid]] = new[:, :n_valid]
         return logits
 
     @torch.no_grad()
     def _prefill(self, prompt):
         """Single-sequence prefill into a fresh cache region, attention
-        through the flash-attention kernel."""
+        and the RG-LRU recurrence through their kernels."""
         logits, cache = ST.prefill(self.params, self.cfg,
                                    self._tensor(prompt)[None],
                                    self.cache_len, use_kernels=True)
@@ -157,9 +167,8 @@ class ServeEngine:
                                  f"tokens, want 1 to {self.cache_len - 1}")
             logits, cache = self._prefill(req.prompt)
             # install the prefilled single-sequence cache into this slot
-            for full, new in zip(self.caches, cache):
-                for name in full:
-                    _install_slot(full[name], new[name], slot)
+            for full, new in zip(T.leaves(self.caches), T.leaves(cache)):
+                _install_slot(full, new, slot)
             tok = int(torch.argmax(logits))
             req.first_token_at = self.clock()
             req.output.append(tok)

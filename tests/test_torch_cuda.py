@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: the gradient-sync kernels bitwise, flash attention at the
 tolerances of ``tests/test_kernels.py`` and, against the plain version on
-f32 copies of its inputs, to about one bf16 ulp.  Marked ``cuda``: they skip on a
+f32 copies of its inputs, to about one bf16 ulp; the RG-LRU scan at the
+tolerances of ``tests/test_kernels.py``.  Marked ``cuda``: they skip on a
 machine without a CUDA device and run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -123,9 +124,20 @@ def test_flash_attention_lengths(dev, dt, S, longer_kv):
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("G", [1, 4, 8])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_flash_attention_groups_and_head_dims(dev, dt, G, hd):
     _flash_case(dev, 2, 129, 129, 2 * G, 2, hd, dt)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [
+    (1, 1, True, None), (129, 129, True, None), (1000, 1000, True, None),
+    (100, 137, True, None), (129, 300, False, None), (1000, 1000, True, 300),
+    (3000, 3000, True, 2048)])
+def test_flash_attention_recurrentgemma_heads(dev, S, T, causal, window):
+    """recurrentgemma-9b's local attention: 16 query heads over 1 KV head
+    at hd 256, ragged lengths, and a window shorter than the sequence."""
+    for dt in (torch.float32, torch.bfloat16):
+        _flash_case(dev, 1, S, T, 16, 1, 256, dt, causal, window)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
@@ -159,6 +171,10 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
     q = torch.zeros(1, 8, 4, 96, device=dev)
     with pytest.raises(ValueError):          # head dim 96
         K.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 32, 256, device=dev)
+    with pytest.raises(ValueError):          # 32 heads over one at hd 256
+        K.flash_attention(q, q[:, :, :1].contiguous(),
+                          q[:, :, :1].contiguous())
     q = torch.zeros(1, 8, 4, 64, device=dev)
     with pytest.raises(ValueError):          # k on the CPU, q on the card
         K.flash_attention(q, q.cpu(), q)
@@ -166,3 +182,49 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
         K.flash_attention(q.transpose(1, 2), q, q)
     with pytest.raises(RuntimeError):        # forward only
         K.flash_attention(q.requires_grad_(), q, q)
+
+
+# ------------------------------------------------------------------ RG-LRU
+def _lru_case(dev, B, S, L, dt, lam_dt=None):
+    gen = torch.Generator(device=dev).manual_seed(B * 1000 + S + L)
+    x = torch.randn(B, S, L, generator=gen, device=dev).to(dt)
+    r = torch.rand(B, S, L, generator=gen, device=dev).to(dt)
+    i = torch.rand(B, S, L, generator=gen, device=dev).to(dt)
+    lam = torch.linspace(2.0, 6.0, L, device=dev).to(lam_dt or dt)
+    before = K.rglru_scan.launches
+    got = K.rglru_scan(x, r, i, lam)
+    torch.cuda.synchronize()
+    assert K.rglru_scan.launches == before + 1
+    assert got.dtype == dt and got.shape == x.shape
+    want = R.rglru_ref(x, r, i, lam)
+    # tests/test_kernels.py: 2e-5 for f32, 2e-2 for bf16 (and f16)
+    t = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S", [1, 7, 129, 1024, 2048])
+def test_rglru_scan_serving_shapes(dev, dt, S):
+    """recurrentgemma-9b's prefill shape (B=1, L=4096) at ragged
+    lengths."""
+    _lru_case(dev, 1, S, 4096, dt)
+
+
+@pytest.mark.parametrize("B,S,L", [(2, 300, 4096), (3, 17, 100),
+                                   (2, 129, 24), (1, 5, 1), (4, 64, 8)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rglru_scan_batches_and_widths(dev, B, S, L, dt):
+    """Batches and widths, with lam in x's dtype and in f32."""
+    _lru_case(dev, B, S, L, dt)
+    _lru_case(dev, B, S, L, dt, lam_dt=torch.float32)
+
+
+def test_rglru_scan_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 8, 16, device=dev)
+    lam = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError):          # lam on the CPU
+        K.rglru_scan(x, x, x, lam.cpu())
+    with pytest.raises(ValueError):          # not contiguous
+        K.rglru_scan(x[:, ::2], x[:, ::2], x[:, ::2], lam)
+    with pytest.raises(RuntimeError):        # forward only
+        K.rglru_scan(x.requires_grad_(), x, x, lam)
