@@ -30,44 +30,67 @@ Phases, each of which stops the run with a nonzero exit on failure:
     k and v (1,S,1,256), bf16, causal, window 2048, S in 1, 129, 1984,
     2048, and S=3000 past the window), checked as in (c) and timed beside
     SDPA and its bound.
-(f) training: reduced tinyllama on the card against the same run on the
-    CPU; then the training path — ``repro_torch.launch.train.main`` on full
+(f) the WKV-6 kernel against its plain version, output and final state, at
+    rwkv6-3b's prefill shapes ((1,S,40,64), bf16 r, k, v with f32 w and u,
+    S in 1, 129, 2048) and at off-path cases (f32, w in bf16, f16, B=2 at
+    hd 32, hd 128); timed at S=2048 beside its plain version and its bound.
+(g) training: reduced tinyllama on the card against the same run on the
+    CPU; then the training path -- ``repro_torch.launch.train.main`` on full
     tinyllama-1.1b (22 layers, d_model 2048, bf16 weights, f32 AdamW
     moments), batch 4 x seq 2048, in a one-rank NCCL group, with every
     bucket fused into 2 chunks.  Launch and collective counters are zeroed
     just before and read just after, and must show every kernel ran.
-(g) a trace: device time by kernel over 3 more steps of the training path,
+(h) a trace: device time by kernel over 3 more steps of the training path,
     from ``torch.profiler`` (printed only; it changes no result).
-(h) serving checks, tinyllama-1.1b: the reduced model served on the card
+(i) unfused buckets: the bucket-pack kernel bitwise against its plain
+    version at the training path's buckets and at a padding case, timed
+    beside its plain version, ``torch.cat`` into an f32 view and its HBM
+    bound; then ``train.main`` on full tinyllama-1.1b (batch 2 x seq 512,
+    3 steps) with a strategy that mixes fused buckets with unfused ``ar``
+    and ``rs_ag`` buckets at 1 and 3 chunks: the bucket pack runs once per
+    unfused bucket per step, the fused kernels once per fused bucket per
+    step; and at each of 2 steps of the same model the gradients that
+    strategy syncs are bitwise equal to those an all-fused one syncs.
+(j) serving checks, tinyllama-1.1b: the reduced model served on the card
     against the same requests served on the CPU (equal greedy tokens); full
     ``prefill`` with the kernel against ``prefill`` without it, and both
     against f32 weights, at 129 and 2048 tokens (largest logit and cache
     differences under stated tolerances); the 2048-token prefill timed; a
     decode step traced.
-(i) serving tinyllama-1.1b: ``ServeEngine`` (bf16 weights and KV cache, 8
+(k) serving tinyllama-1.1b: ``ServeEngine`` (bf16 weights and KV cache, 8
     slots, cache 4096), 35 requests submitted at once (32 of
     ``Workload(n_requests=32, prompt_lens=(16, 2048), new_tokens=(32,
     64))`` plus prompts of 1, 129 and 2048 tokens), decoded greedily to
     completion.  The launch counters are zeroed just before and read just
     after: flash attention runs once per layer per prefill.
-(j) serving checks, recurrentgemma-9b, as (h): the reduced model on the
+(l) serving checks, recurrentgemma-9b, as (j): the reduced model on the
     card against the CPU; full ``prefill`` with both kernels against
     ``prefill`` without them and both against f32 weights, at 129 and 1984
     tokens (logits, k/v caches and RG-LRU states under stated tolerances);
     the 1984-token prefill timed; a decode step traced.  Full-size weights
     are drawn on the card.
-(k) serving recurrentgemma-9b (38 layers, d_model 4096, bf16 weights and
+(m) serving recurrentgemma-9b (38 layers, d_model 4096, bf16 weights and
     cache, 8 slots, cache 2048 = the attention window): 20 requests
     submitted at once (16 of ``Workload(n_requests=16, prompt_lens=(16,
     1920), new_tokens=(32, 64))`` plus prompts of 1, 129, 1024 and 1984
     tokens), greedy.  The RG-LRU kernel runs once per RG-LRU layer per
     prefill (26 x 20) and flash attention once per attention layer (12 x
     20).
-(l) a JSON line of every kernel's numbers, then the device line last.
+(n) serving checks, rwkv6-3b, as (j): the reduced model on the card
+    against the CPU; full ``prefill`` with the WKV-6 kernel against
+    ``prefill`` without it and both against f32 weights, at 129 and 2048
+    tokens (logits and the recurrent state: the WKV state and both token
+    shifts' last inputs); the 2048-token prefill timed; a decode step
+    traced.  Full-size weights are drawn on the card.
+(o) serving rwkv6-3b (32 layers, d_model 2560, 40 heads at hd 64, bf16
+    weights, 8 slots, cache 4096): the traffic of (k), greedy.  The WKV-6
+    kernel runs once per layer per prefill (32 x 35).
+(p) a JSON line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -80,6 +103,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -91,6 +115,8 @@ from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.models import stacked as ST  # noqa: E402
+from repro_torch.optim import adamw, apply_updates  # noqa: E402
+from repro_torch.optim import clip_by_global_norm  # noqa: E402
 from repro_torch.serving import engine as ENG  # noqa: E402
 from repro_torch.serving import workload as WL  # noqa: E402
 
@@ -102,33 +128,50 @@ SLOTS = 8
 FLASH_SEQS = (1, 129, 1000, 2048)
 RG_ARCH = "recurrentgemma-9b"
 RG_SEQS = (1, 129, 1024, 1984, 2048)      # RG-LRU and flash check lengths
+RWKV_ARCH = "rwkv6-3b"
+WKV_SEQS = (1, 129, 2048)                 # WKV-6 check lengths
+# the unfused-bucket phase: batch x seq, steps of the launcher's run, steps
+# of the bitwise check, and each bucket's (fused, kind, chunks) in turn
+B1_BATCH, B1_SEQ, B1_STEPS, B1_CHECK_STEPS = 2, 512, 3, 2
+B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
+              (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"convert_copy": CSRC + "grad_sync.cu",
+          "bucket_pack": CSRC + "grad_sync.cu",
           "fused_pack": CSRC + "grad_sync.cu",
           "fused_unpack": CSRC + "grad_sync.cu",
           "flash_attention": CSRC + "flash_attention.cu",
-          "rglru_scan": CSRC + "rglru.cu"}
+          "rglru_scan": CSRC + "rglru.cu",
+          "rwkv6_wkv": CSRC + "wkv6.cu"}
 REPLACES = {"convert_copy": "src/repro/kernels/bucket_pack.py:20",
+            "bucket_pack": "src/repro/kernels/bucket_pack.py:44",
             "fused_pack": "src/repro/kernels/fused_grad_sync.py:40",
             "fused_unpack": "src/repro/kernels/fused_grad_sync.py:66",
             "flash_attention": "src/repro/kernels/flash_attention.py:82",
-            "rglru_scan": "src/repro/kernels/rglru.py:40"}
+            "rglru_scan": "src/repro/kernels/rglru.py:40",
+            "rwkv6_wkv": "src/repro/kernels/rwkv6.py:44"}
 SYNC_KERNELS = ("convert_copy", "fused_pack", "fused_unpack")
 # Operations of the RG-LRU kernel per element: the gate math (r scale,
 # two exp, 1 - e, max, sqrt, i x, product) and one multiply-add.
 RGLRU_OPS_PER_ELEM = 11
+# f32 operations of WKV-6 per (step, key, value), FMA counted as 2: a
+# multiply-add to read the state out and a multiply and a multiply-add to
+# update it (the bonus term factors into one dot product per step).
+WKV_OPS_PER_ENTRY = 5
 
 
 @dataclasses.dataclass(frozen=True)
 class Serving:
     """One serving cell: the model, the engine's cache, the prefill check
-    lengths with their tolerances, the reduced engine's prompts, and the
-    traffic (a ``Workload`` plus extra prompts of 32 new tokens each)."""
+    lengths with their tolerances (``cache_tol`` for k/v leaves,
+    ``state_tol`` for recurrent state leaves, None where the model has
+    none), the reduced engine's prompts, and the traffic (a ``Workload``
+    plus extra prompts of 32 new tokens each)."""
     arch: str
     cache_len: int
     check_seqs: tuple
     logit_tol: float
-    cache_tol: float
+    cache_tol: Optional[float]
     state_tol: Optional[float]
     reduced_lens: tuple
     workload: WL.Workload
@@ -174,6 +217,33 @@ RECURRENTGEMMA = Serving(
     workload=WL.Workload(n_requests=16, prompt_lens=(16, 1920),
                          new_tokens=(32, 64), seed=0),
     extra_prompts=(1, 129, 1024, 1984))
+RWKV6 = Serving(
+    RWKV_ARCH, 4096, (129, 2048),
+    # Largest |logit| difference allowed between full rwkv6-3b prefill with
+    # the WKV-6 kernel and without it (its plain version), bf16 weights.
+    # Both run the recurrence in f32 on the same inputs, but where the sums'
+    # order flips a bf16 rounding of the output the random-weight model
+    # carries it on and grows it layer by layer: each bf16 path lies
+    # 0.91-1.10 from an f32 run at logits up to 5.7, and the two paths
+    # measured 0.51 (S=129) and 0.46 (S=2048) apart (H100, PERF.md
+    # section 6).  The f32 check
+    # (F32_PATHS_TOL) is the tight one.
+    logit_tol=1.5,
+    cache_tol=None,
+    # The same for every recurrent state entry (32 layers: the f32 WKV
+    # state and the bf16 last inputs of both token shifts): measured 3.03
+    # and 2.67 at entries up to 27, each path 4.4-5.6 from the f32 run.
+    state_tol=9.0,
+    reduced_lens=(1, 7, 40, 64, 65),
+    workload=TINYLLAMA.workload,
+    extra_prompts=TINYLLAMA.extra_prompts)
+# Kernel against kernel-free prefill with f32 weights, every cell: the
+# largest |difference| allowed in logits and in every cache and state entry.
+# Only the order of f32 sums differs (and flash's f32 probabilities), so a
+# wrong state, mask or index moves them by their own scale.  Measured at
+# most 4.1e-5 (tinyllama-1.1b, recurrentgemma-9b) and 1.1e-4 in logits and
+# 5.5e-4 in WKV states up to 27 (rwkv6-3b), H100; PERF.md section 6.
+F32_PATHS_TOL = 2e-3
 # Flash attention in bf16 against the plain version on f32 copies of its
 # inputs: one bf16 rounding of the output (relative 2**-9) and f32 sums.
 FLASH_F32_RTOL, FLASH_F32_ATOL = 8e-3, 2e-3
@@ -528,6 +598,73 @@ def phase_rglru(dev) -> dict:
             "max_abs_err": max(errs.values())}
 
 
+def phase_wkv6(dev) -> dict:
+    """The WKV-6 kernel against its plain version, output and final state,
+    at rwkv6-3b's prefill shapes and at off-path cases; timed at S=2048
+    beside its plain version and its bound."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cfg = get_config(RWKV_ARCH)
+    H, hd = cfg.n_heads, cfg.hd
+
+    def inputs(B, S, H, hd, dt, w_dt=torch.float32):
+        # decays exp(-exp(-2 + noise)) near 0.87, as the model's w0 = -2
+        # gives them
+        r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+            B, S, H, hd, generator=gen, device=dev))).to(w_dt)
+        u = 0.1 * torch.randn(H, hd, generator=gen, device=dev)
+        return r, k, v, w, u
+
+    def check(what, args) -> float:
+        out, final = K.rwkv6_wkv(*args)
+        want, want_final = R.rwkv6_ref(*args)
+        torch.cuda.synchronize()
+        # tests/test_kernels.py::test_rwkv6: 5e-4 for f32, 5e-2 for bf16
+        t = 5e-4 if out.dtype == torch.float32 else 5e-2
+        for name, got, ref in (("out", out, want),
+                               ("final state", final, want_final)):
+            torch.testing.assert_close(
+                got.float(), ref.float(), rtol=t, atol=t,
+                msg=lambda m: f"rwkv6_wkv {what} {name}: {m}")
+        err = float((out.float() - want.float()).abs().max())
+        err_s = float((final - want_final).abs().max())
+        print(f"kernel rwkv6_wkv {what} {tuple(args[0].shape)} w "
+              f"{args[3].dtype}: max_abs_err out {err:.3e} (max |out| "
+              f"{float(want.float().abs().max()):.2f}), final state "
+              f"{err_s:.3e} (max |S| {float(want_final.abs().max()):.2f}), "
+              f"within {t}")
+        return max(err, err_s)
+
+    errs = [check(f"bf16 S={S}", inputs(1, S, H, hd, torch.bfloat16))
+            for S in WKV_SEQS]
+    for what, B, S, Hh, d, dt, w_dt in (
+            ("f32", 1, 2048, H, hd, torch.float32, torch.float32),
+            ("w in bf16", 1, 129, H, hd, torch.bfloat16, torch.bfloat16),
+            ("f16", 1, 129, H, hd, torch.float16, torch.float32),
+            ("B=2 hd 32", 2, 300, 4, 32, torch.bfloat16, torch.float32),
+            ("hd 128", 1, 200, 2, 128, torch.float32, torch.float32)):
+        check(what, inputs(B, S, Hh, d, dt, w_dt))
+    args = inputs(1, max(WKV_SEQS), H, hd, torch.bfloat16)
+    ms = time_ms(lambda: K.rwkv6_wkv(*args))
+    plain = time_ms(lambda: R.rwkv6_ref(*args), reps=3, warmup=1)
+    r, k, v, w, u = args
+    n = r.numel()
+    nbytes = (4 * n * r.element_size() + n * w.element_size()
+              + 4 * u.numel() + 4 * H * hd * hd)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = WKV_OPS_PER_ENTRY * n * hd / F32_FLOP_PER_S
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernel rwkv6_wkv bf16 {tuple(r.shape)}, f32 w: ms={ms:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bound:.5f} ({by}; "
+          f"{nbytes / 1e6:.1f} MB in {t_bytes * 1e3:.5f} ms, "
+          f"{WKV_OPS_PER_ENTRY * n * hd / 1e9:.2f} GFLOP in "
+          f"{t_ops * 1e3:.5f} ms) library_ms=none")
+    return {"ms": ms, "plain_ms": plain, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs)}
+
+
 def phase_training(dev, tmp: str, strat, leaves) -> tuple[dict, str]:
     # the port on the card against the port on the CPU, on a small input
     small = os.path.join(tmp, "small.json")
@@ -617,6 +754,157 @@ def phase_trace(plan: str, steps: int = 3) -> None:
               f"{k[:100]}")
 
 
+def _mixed_strategy(strat) -> TS.GradSyncStrategy:
+    """``strat``'s buckets with each bucket's (fused, kind, chunks) taken
+    from :data:`B1_PATTERN` in turn."""
+    pat = [B1_PATTERN[i % len(B1_PATTERN)] for i in range(len(strat.buckets))]
+    return TS.GradSyncStrategy(strat.buckets, comms=[p[1] for p in pat],
+                               chunks=[p[2] for p in pat],
+                               fused=[p[0] for p in pat])
+
+
+def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
+    """The bucket-pack kernel bitwise against its plain version and timed;
+    the launcher's run with unfused buckets, its launches counted; each
+    step's synced gradients against an all-fused sync of the same
+    gradients.  Returns the kernel's numbers and its launches in the run."""
+    mixed = _mixed_strategy(strat)
+    unfused = [bi for bi in range(len(strat.buckets)) if not mixed.is_fused(bi)]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in leaves]
+    res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    nbytes = 0
+    for bi in unfused:
+        ls = [grads[i] for i in strat.buckets[bi]]
+        total = sum(l.numel() for l in ls)
+        res["max_abs_err"] = max(res["max_abs_err"], check_equal(
+            "bucket_pack", [K.bucket_pack(ls, total)],
+            [R.bucket_pack_ref(ls, total)]))
+        res["ms"] += time_ms(lambda: K.bucket_pack(ls, total))
+        res["plain_ms"] += time_ms(lambda: R.bucket_pack_ref(ls, total))
+        buf = torch.empty(total, dtype=torch.float32, device=dev)
+        flat = [l.reshape(-1) for l in ls]
+        res["library_ms"] += time_ms(lambda: torch.cat(flat, out=buf))
+        nbytes += sum(l.numel() * l.element_size() for l in ls) + 4 * total
+        del buf, flat
+    # padding case: odd sizes, mixed dtypes, a pad to `total`, and each out
+    # dtype; one leaf at a 2-byte offset (the scalar path)
+    sizes = [17, 1000003, 5, 65537, 3]
+    odd = [torch.randn(n + 1, generator=gen, device=dev).mul_(1.0001).to(dt)
+           for n, dt in zip(sizes, (torch.bfloat16, torch.float32,
+                                    torch.float16, torch.bfloat16,
+                                    torch.float32))]
+    odd[0] = odd[0][1:]
+    odd[1:] = [l[:-1] for l in odd[1:]]
+    for out_dt in (torch.float32, torch.bfloat16, torch.float16):
+        check_equal(f"bucket_pack padded to {out_dt}",
+                    [K.bucket_pack(odd, sum(sizes) + 13, out_dt)],
+                    [R.bucket_pack_ref(odd, sum(sizes) + 13, out_dt)])
+    torch.cuda.synchronize()
+    del grads, odd
+    res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    res["bound_by"] = "bytes"
+    print(f"kernel bucket_pack: bitwise equal to plain; per step at the "
+          f"main path's {len(unfused)} unfused buckets ms={res['ms']:.4f} "
+          f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} "
+          f"library_ms={res['library_ms']:.4f} (torch.cat into an f32 "
+          f"buffer)")
+
+    # the main path: the launcher, with unfused buckets
+    plan = os.path.join(tmp, "mixed.json")
+    mixed.save(plan)
+    nb = len(strat.buckets)
+    sizes = [p.numel() for p in leaves]
+    synced_dt = {}      # each leaf's dtype after the sync
+    cast_back = 0       # all-bf16 unfused buckets, cast back by convert_copy
+    for bi, b in enumerate(strat.buckets):
+        dt = functools.reduce(torch.promote_types,
+                              [leaves[i].dtype for i in b])
+        for i in b:
+            synced_dt[i] = leaves[i].dtype if mixed.is_fused(bi) else dt
+        cast_back += (not mixed.is_fused(bi)) and dt != torch.float32
+    want = {"bucket_pack": len(unfused) * B1_STEPS,
+            "fused_pack": (nb - len(unfused)) * B1_STEPS,
+            "fused_unpack": (nb - len(unfused)) * B1_STEPS,
+            "convert_copy": (cast_back + sum(
+                dt != torch.float32 for dt in synced_dt.values()))
+            * B1_STEPS}
+    calls = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    for bi, b in enumerate(strat.buckets):
+        k = min(mixed.chunk_count(bi), sum(sizes[i] for i in b))
+        if mixed.comm_kind(bi) == "ar" and not mixed.is_fused(bi):
+            calls["all_reduce"] += k * B1_STEPS
+        else:
+            calls["reduce_scatter"] += k * B1_STEPS
+            calls["all_gather"] += k * B1_STEPS
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    TS.reset_collectives()
+    out = TRAIN.main(["--arch", ARCH, "--steps", str(B1_STEPS), "--batch",
+                      str(B1_BATCH), "--seq", str(B1_SEQ), "--strategy-file",
+                      plan, "--log-every", "1", "--device", "cuda"])
+    launches = {name: getattr(K, name).launches for name in want}
+    coll = dict(TS.COLLECTIVES)
+    if launches != want:
+        raise AssertionError(f"unfused-bucket run: launches {launches}, "
+                             f"want {want}")
+    if coll != calls:
+        raise AssertionError(f"unfused-bucket run: collectives {coll}, "
+                             f"want {calls}")
+    if not all(math.isfinite(l) for l in out["losses"]):
+        raise AssertionError(f"unfused-bucket run: losses {out['losses']}")
+    print(f"training {ARCH} with {len(unfused)} unfused buckets (ar and "
+          f"rs_ag at 1 and 3 chunks) and {nb - len(unfused)} fused: "
+          f"{B1_STEPS} steps, batch {B1_BATCH} x seq {B1_SEQ}; losses "
+          f"{out['losses']}; step time "
+          f"{statistics.median(out['step_seconds'][1:]) * 1e3:.1f} ms; "
+          f"launches {launches}; collectives {coll}")
+
+    # each step's synced gradients, this strategy against an all-fused one
+    # on the same gradients (at dp=1 both are exact casts)
+    fused = TS.GradSyncStrategy(strat.buckets, comms=["ar"] * nb,
+                                chunks=[CHUNKS] * nb, fused=[1] * nb)
+    cfg = get_config(ARCH)
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    plist = ST.leaves(params)
+    opt_init, opt_update = adamw(1e-3, weight_decay=0.01)
+    opt = opt_init(plist)
+    tgen = torch.Generator(device=dev).manual_seed(7)
+    created = TRAIN.init_process_group(dev)
+    try:
+        for step in range(B1_CHECK_STEPS):
+            tokens = torch.randint(0, cfg.vocab, (B1_BATCH, B1_SEQ),
+                                   generator=tgen, device=dev)
+            for p in plist:
+                p.requires_grad_(True)
+            loss = ST.loss_fn(params, cfg, {"tokens": tokens}, remat=True)
+            grads = torch.autograd.grad(loss, plist)
+            got = TS.sync_grads([g.clone() for g in grads], mixed)
+            want_g = TS.sync_grads([g.clone() for g in grads], fused)
+            n_f32 = sum(g.dtype != w.dtype for g, w in zip(got, want_g))
+            check_equal(f"step {step} gradients, unfused against fused",
+                        [g.float() for g in got],
+                        [w.float() for w in want_g])
+            print(f"step {step}: loss {float(loss.detach()):.4f}; "
+                  f"{len(got)} synced gradients bitwise equal to the "
+                  f"all-fused sync ({n_f32} come back as f32 views of a "
+                  f"mixed bucket)")
+            with torch.no_grad():
+                for p in plist:
+                    p.requires_grad_(False)
+                clipped, _ = clip_by_global_norm(got, 1.0)
+                updates, opt = opt_update(clipped, opt, plist)
+                apply_updates(plist, updates)
+            del grads, got, want_g
+    finally:
+        if created:
+            dist.destroy_process_group()
+    del params, plist, opt
+    torch.cuda.empty_cache()
+    return res, launches["bucket_pack"]
+
+
 def _engine_requests(vocab: int, seed: int, lens, new: int) -> list:
     rng = np.random.default_rng(seed)
     return [ENG.Request(rid=i, prompt=rng.integers(0, vocab, n).astype(
@@ -647,8 +935,8 @@ def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
           f"({sum(map(len, outs['cpu'].values()))} tokens)")
 
     def diffs(a, b) -> dict:
-        """Largest |difference| of the k/v leaves and of the RG-LRU state
-        leaves of two cache trees."""
+        """Largest |difference| of the k/v leaves and of the recurrent
+        state leaves of two cache trees."""
         out = {"cache": 0.0, "state": 0.0}
         for (path, x), y in zip(T.leaves_with_paths(a), T.leaves(b)):
             kind = "cache" if path.endswith(("['k']", "['v']")) else "state"
@@ -668,6 +956,8 @@ def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
                                 use_kernels=True)
             lp, cp = ST.prefill(params, cfg, toks, cell.cache_len)
             l32, c32 = ST.prefill(params32, cfg32, toks, cell.cache_len)
+            lk32, ck32 = ST.prefill(params32, cfg32, toks, cell.cache_len,
+                                    use_kernels=True)
         if lk.shape != (1, cfg.vocab) or not bool(torch.isfinite(lk).all()):
             raise AssertionError(f"prefill S={S}: logits {tuple(lk.shape)} "
                                  f"not finite or misshapen")
@@ -678,37 +968,54 @@ def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
         e_p = float((lp.float() - l32).abs().max())
         print(f"prefill {cell.arch} S={S}: max |logit| "
               f"{float(lp.abs().max()):.3f}, kernel vs dense max |diff| "
-              f"{diff:.4e} (tolerance {cell.logit_tol}); k/v cache max "
-              f"|entry| {scale['cache']:.3f}, kernel vs dense max |diff| "
-              f"{dkp['cache']:.4e} (tolerance {cell.cache_tol}); against f32 "
-              f"weights: logits kernel {e_k:.4e}, dense {e_p:.4e}, cache "
-              f"kernel {dk32['cache']:.4e}, dense {dp32['cache']:.4e}; "
-              f"argmax {int(lk.argmax())} / {int(lp.argmax())} / "
+              f"{diff:.4e} (tolerance {cell.logit_tol}); against f32 "
+              f"weights: logits kernel {e_k:.4e}, dense {e_p:.4e}; argmax "
+              f"{int(lk.argmax())} / {int(lp.argmax())} / "
               f"{int(l32.argmax())} (kernel / dense / f32)")
+        # in f32 the two paths differ only in the order of f32 sums, which
+        # the bf16 model's own rounding does not swamp: a kernel fault shows
+        # here at the scale of the logits
+        e32 = float((lk32 - l32).abs().max())
+        d32 = diffs(ck32, c32)
+        print(f"prefill {cell.arch} S={S}, f32 weights: kernel vs dense max "
+              f"|diff| logits {e32:.4e}, k/v {d32['cache']:.4e}, state "
+              f"{d32['state']:.4e} (tolerance {F32_PATHS_TOL} each)")
+        if not max(e32, d32["cache"], d32["state"]) <= F32_PATHS_TOL:
+            raise AssertionError(f"prefill S={S}, f32 weights: kernel path "
+                                 f"differs from dense by {e32} (logits), "
+                                 f"{d32} (caches) > {F32_PATHS_TOL}")
+        if cell.cache_tol is not None:
+            print(f"prefill {cell.arch} S={S}: k/v cache max |entry| "
+                  f"{scale['cache']:.3f}, kernel vs dense max |diff| "
+                  f"{dkp['cache']:.4e} (tolerance {cell.cache_tol}); against "
+                  f"f32 weights: kernel {dk32['cache']:.4e}, dense "
+                  f"{dp32['cache']:.4e}")
+            if not dkp["cache"] <= cell.cache_tol:
+                raise AssertionError(f"prefill S={S}: kernel caches differ "
+                                     f"from dense by {dkp['cache']} > "
+                                     f"{cell.cache_tol}")
         if cell.state_tol is not None:
-            print(f"prefill {cell.arch} S={S}: RG-LRU state (h, conv) max "
-                  f"|entry| {scale['state']:.3f}, kernel vs dense max |diff| "
-                  f"{dkp['state']:.4e} (tolerance {cell.state_tol}); "
-                  f"against f32 weights: kernel {dk32['state']:.4e}, dense "
-                  f"{dp32['state']:.4e}")
+            names = sorted({p.rsplit("[", 1)[-1].strip("']")
+                            for p, _ in T.leaves_with_paths(ck)} - {"k", "v"})
+            print(f"prefill {cell.arch} S={S}: recurrent state "
+                  f"({', '.join(names)}) max |entry| {scale['state']:.3f}, "
+                  f"kernel vs dense max |diff| {dkp['state']:.4e} (tolerance "
+                  f"{cell.state_tol}); against f32 weights: kernel "
+                  f"{dk32['state']:.4e}, dense {dp32['state']:.4e}")
             if not dkp["state"] <= cell.state_tol:
-                raise AssertionError(f"prefill S={S}: kernel RG-LRU states "
-                                     f"differ from dense by {dkp['state']} "
-                                     f"> {cell.state_tol}")
+                raise AssertionError(f"prefill S={S}: kernel recurrent "
+                                     f"states differ from dense by "
+                                     f"{dkp['state']} > {cell.state_tol}")
         if not diff <= cell.logit_tol:
             raise AssertionError(f"prefill S={S}: kernel logits differ from "
                                  f"dense by {diff} > {cell.logit_tol}")
-        if not dkp["cache"] <= cell.cache_tol:
-            raise AssertionError(f"prefill S={S}: kernel caches differ from "
-                                 f"dense by {dkp['cache']} > "
-                                 f"{cell.cache_tol}")
-        # the kernels (f32 probabilities, f32 recurrence) add no error of
+        # the kernels (f32 probabilities, f32 recurrences) add no error of
         # their own to the bf16 model: the kernel path lies no further from
         # the f32 run than twice the dense bf16 path does
         if not e_k <= 2 * e_p:
             raise AssertionError(f"prefill S={S}: kernel path {e_k} from "
                                  f"the f32 run, dense path {e_p}")
-        del ck, cp, c32
+        del ck, cp, c32, ck32
     del params32
     torch.cuda.empty_cache()
 
@@ -824,12 +1131,14 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
             raise AssertionError(f"serving: request {r.rid} gave "
                                  f"{len(r.output)} tokens, want "
                                  f"{r.max_new_tokens} in [0, {cfg.vocab})")
-    # each prefill runs flash attention once per attention layer and the
-    # RG-LRU kernel once per RG-LRU layer; nothing else launches a kernel
+    # each prefill runs flash attention once per attention layer, the
+    # RG-LRU kernel once per RG-LRU layer and the WKV-6 kernel once per
+    # RWKV layer; nothing else launches a kernel
     kinds = [cfg.block_kind(li) for li in range(cfg.n_layers)]
     want = {name: 0 for name in REPLACES}
     want["flash_attention"] = kinds.count("attn") * len(reqs)
     want["rglru_scan"] = kinds.count("rec") * len(reqs)
+    want["rwkv6_wkv"] = kinds.count("rwkv") * len(reqs)
     if launches != want:
         raise AssertionError(f"serving launches {launches}, want {want} "
                              f"(one per layer of the kernel's kind per "
@@ -867,10 +1176,13 @@ def main() -> int:
     res["flash_attention"]["max_abs_err"] = max(
         res["flash_attention"]["max_abs_err"],
         phase_flash_recurrentgemma(dev))
+    res["rwkv6_wkv"] = phase_wkv6(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         launches, plan = phase_training(dev, tmp, strat, leaves)
         phase_trace(plan)
+        res["bucket_pack"], launches["bucket_pack"] = phase_unfused_buckets(
+            dev, tmp, strat, leaves)
     torch.cuda.empty_cache()
 
     cfg = get_config(ARCH)
@@ -880,24 +1192,32 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # full-size weights drawn on the card: 9.4B normals from a CUDA
-    # generator, where the host would take about 95 s
-    cfg = get_config(RG_ARCH)
-    t1 = time.time()
-    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
-    torch.cuda.synchronize()
-    print(f"{RG_ARCH}: {sum(p.numel() for p in ST.leaves(params)) / 1e9:.2f}B"
-          f" parameters in {len(ST.leaves(params))} leaves drawn on the card "
-          f"in {time.time() - t1:.1f} s")
-    phase_serving_checks(dev, params, cfg, RECURRENTGEMMA)
-    served_rg = phase_serving(dev, params, cfg, RECURRENTGEMMA)
-    for name in REPLACES:
-        if name not in SYNC_KERNELS:
-            launches[name] = served[name] + served_rg[name]
-    print(f"launches on both serving paths: flash_attention "
+    # full-size weights drawn on the card: billions of normals from a CUDA
+    # generator, where the host would take minutes
+    served_by = {}
+    for cell in (RECURRENTGEMMA, RWKV6):
+        cfg = get_config(cell.arch)
+        t1 = time.time()
+        params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+        torch.cuda.synchronize()
+        print(f"{cell.arch}: "
+              f"{sum(p.numel() for p in ST.leaves(params)) / 1e9:.2f}B "
+              f"parameters in {len(ST.leaves(params))} leaves drawn on the "
+              f"card in {time.time() - t1:.1f} s")
+        phase_serving_checks(dev, params, cfg, cell)
+        served_by[cell.arch] = phase_serving(dev, params, cfg, cell)
+        del params
+        torch.cuda.empty_cache()
+    served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
+    launches["flash_attention"] = (served["flash_attention"]
+                                   + served_rg["flash_attention"])
+    launches["rglru_scan"] = served_rg["rglru_scan"]
+    launches["rwkv6_wkv"] = served_rwkv["rwkv6_wkv"]
+    print(f"launches on the serving paths: flash_attention "
           f"{served['flash_attention']} ({ARCH}) + "
           f"{served_rg['flash_attention']} ({RG_ARCH}), rglru_scan "
-          f"{served_rg['rglru_scan']} ({RG_ARCH})")
+          f"{served_rg['rglru_scan']} ({RG_ARCH}), rwkv6_wkv "
+          f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH})")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": res[name]["max_abs_err"],

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-The dense and RG-LRU hybrid configs of the reference registry, copied with their published
-widths and sources; reduced smoke-test variants come from
+The dense, RG-LRU hybrid and RWKV-6 configs of the reference registry,
+copied with their published widths and sources; reduced smoke-test variants come from
 ``cfg.reduced()``.
 """
 from __future__ import annotations
@@ -42,6 +42,13 @@ _CONFIGS = {
         recurrent=RecurrentConfig(lru_width=4096, conv_width=4,
                                   pattern=("rec", "rec", "attn")),
         source="arXiv:2402.19427 (Griffin / RecurrentGemma-9B)"),
+    # RWKV-6 "Finch": attention-free, data-dependent decay WKV with 40 heads
+    # at hd 64, ReLU^2 channel mix
+    "rwkv6-3b": ModelConfig(
+        name="rwkv6-3b", arch_type="ssm", n_layers=32, d_model=2560,
+        n_heads=40, n_kv_heads=40, head_dim=64, d_ff=8960, vocab=65536,
+        block="rwkv", norm="layer", glu=False, act="relu", rope_frac=0.0,
+        source="arXiv:2404.05892 (RWKV-6 Finch)"),
 }
 
 ARCHS = tuple(_CONFIGS)

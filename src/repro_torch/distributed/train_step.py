@@ -7,9 +7,12 @@ buckets of a searched :class:`GradSyncStrategy`, and each bucket is
 synchronised as one fused tensor (the paper's tensor fusion) with the
 bucket's own collective kind and chunk count:
 
-* ``ar``: one ``all_reduce`` per chunk, then ``/ dp``;
-* ``rs_ag``: per chunk, pad to a multiple of dp, ``reduce_scatter_tensor``,
-  ``/ dp`` on the shard, ``all_gather_into_tensor``;
+* ``ar``: the CUDA bucket-pack kernel stages the leaves, converted, into
+  one f32 buffer (one launch per bucket), then one ``all_reduce`` per
+  chunk, then ``/ dp``;
+* ``rs_ag``: the same staging, then per chunk, pad to a multiple of dp,
+  ``reduce_scatter_tensor``, ``/ dp`` on the shard,
+  ``all_gather_into_tensor``;
 * fused buckets: the CUDA pack kernel stages the leaves straight into the
   chunk-major, dp-padded f32 layout, each chunk is reduce-scattered,
   divided and all-gathered in place, and the CUDA unpack kernel casts the
@@ -33,6 +36,7 @@ optimization-barrier fences between buckets) hold by construction.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from typing import Callable, Optional
 
@@ -247,11 +251,12 @@ def sync_grads(grads: list, strategy: GradSyncStrategy,
             for i, g in zip(bucket, leaves):
                 out[i] = g
             continue
-        flat = torch.cat([g.reshape(-1) for g in leaves])
-        dt = flat.dtype
-        # reduce in f32, as the reference does
-        f32 = flat if dt == torch.float32 else K.convert_copy(flat,
-                                                              torch.float32)
+        # the dtype the bucket's concatenation has in the reference
+        dt = functools.reduce(torch.promote_types, [g.dtype for g in leaves])
+        n = sum(g.numel() for g in leaves)
+        # reduce in f32, as the reference does: one pack kernel stages the
+        # leaves, converted, into the f32 buffer
+        f32 = K.bucket_pack(leaves, n, torch.float32)
 
         def reduce_one(part):
             if strategy.comm_kind(bi) == "rs_ag":
@@ -260,7 +265,6 @@ def sync_grads(grads: list, strategy: GradSyncStrategy,
             _all_reduce(part, group)
             return part / dp
 
-        n = f32.numel()
         k = min(strategy.chunk_count(bi), max(n, 1))
         if k > 1:
             cuts = chunk_cuts(n, k)

@@ -40,11 +40,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_convert_copy": [_P, _I, _P, _I, _LL, _I, _P],
+    "repro_bucket_pack": [_P, _I, _LL, _LL, _P],
     "repro_fused_pack": [_P, _I, _LL, _LL, _P],
     "repro_fused_unpack": [_P, _I, _LL, _LL, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
     "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_rwkv6_wkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
 }
 
 

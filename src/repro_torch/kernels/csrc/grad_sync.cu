@@ -4,19 +4,23 @@
 // They replace the Pallas kernels of the JAX reference:
 //   convert_copy_kernel <- src/repro/kernels/bucket_pack.py:20
 //                          (convert_copy_kernel, body _kernel)
+//   bucket_pack_kernel  <- src/repro/kernels/bucket_pack.py:44
+//                          (bucket_pack_kernel)
 //   fused_pack_kernel   <- src/repro/kernels/fused_grad_sync.py:40
 //                          (fused_pack_kernel)
 //   fused_unpack_kernel <- src/repro/kernels/fused_grad_sync.py:66
 //                          (fused_unpack_kernel)
 //
-// What bounds them: all three are pure HBM streams with one conversion per
+// What bounds them: all four are pure HBM streams with one conversion per
 // element, so the bound is bytes / 3.35 TB/s.  For the largest tinyllama-1.1b
 // bucket (one 22 x 2048 x 5632 bf16 MLP leaf, 253.8M elements) the pack reads
 // 508 MB of bf16 and writes 1015 MB of f32: 0.45 ms at 3.35 TB/s; the unpack
 // moves the same bytes the other way.
 //
 // Design: the Pallas versions tile one leaf at a time through VMEM, one
-// pallas_call per leaf.  Here one launch covers a whole bucket.  The host
+// pallas_call per leaf.  Here one launch covers a whole bucket (the bucket
+// pack is the fused pack's table at dp=1 and one chunk, written in the
+// bucket's out dtype).  The host
 // (ops.py) cuts the bucket into segments -- a run of elements of one leaf
 // that lands in one chunk of the staged buffer, or a run of zeros (the pad
 // to `total` and each chunk's pad to a multiple of dp) -- and passes a table
@@ -212,6 +216,14 @@ convert_copy_kernel(const void* __restrict__ x, void* __restrict__ out,
         from_f32<D>(to_f32(static_cast<const TS*>(x)[j]));
 }
 
+// Stages an unfused bucket's leaves into one flat buffer in the out dtype,
+// zero-padded to the bucket's total.
+__global__ void __launch_bounds__(kThreads)
+bucket_pack_kernel(const long long* __restrict__ table, int nseg,
+                   long long ntiles, long long tile_elems) {
+  segmented_copy(table, nseg, ntiles, tile_elems);
+}
+
 // Packs a bucket's leaves into the chunk-major, dp-padded f32 staging
 // buffer that the per-chunk reduce-scatters read.
 __global__ void __launch_bounds__(kThreads)
@@ -270,6 +282,15 @@ int repro_convert_copy(const void* x, int x_dtype, void* out, int out_dtype,
     case kBF16: launch_convert<kBF16>(out_dtype, grid, st, x, out, n, vec); break;
     case kF16: launch_convert<kF16>(out_dtype, grid, st, x, out, n, vec); break;
   }
+  return (int)cudaGetLastError();
+}
+
+int repro_bucket_pack(const long long* table, int nseg, long long ntiles,
+                      long long tile_elems, void* stream) {
+  const dim3 grid((unsigned)(ntiles < resident_blocks() ? ntiles
+                                                        : resident_blocks()));
+  bucket_pack_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, nseg, ntiles, tile_elems);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Wrappers of the port's CUDA kernels (port of the matching wrappers in
 ``repro/kernels/ops.py``): the gradient-sync staging kernels
-(``csrc/grad_sync.cu``), flash attention (``csrc/flash_attention.cu``) and
-the RG-LRU scan (``csrc/rglru.cu``).
+(``csrc/grad_sync.cu``), flash attention (``csrc/flash_attention.cu``),
+the RG-LRU scan (``csrc/rglru.cu``) and the WKV-6 recurrence
+(``csrc/wkv6.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 * on CPU tensors, returns its plain PyTorch version from :mod:`.ref`;
@@ -171,6 +172,56 @@ def _launch_segments(fn_name: str, rows: list, device) -> None:
     _raise_on_error(lib, rc, fn_name)
 
 
+def _pack_rows(leaves: list, buf: torch.Tensor, segs) -> list:
+    """The kernel rows of a pack plan ``segs`` (:func:`pack_segments`)
+    writing ``leaves`` into ``buf``, converted to its dtype."""
+    esize, dcode = buf.element_size(), _CODES[buf.dtype]
+    rows = []
+    for leaf, loff, soff, n in segs:
+        dst = buf.data_ptr() + esize * soff
+        if leaf == _ZERO:
+            rows.append((0, _ZERO, dst, dcode, n))
+        else:
+            l = leaves[leaf]
+            rows.append((l.data_ptr() + l.element_size() * loff,
+                         _CODES[l.dtype], dst, dcode, n))
+    return rows
+
+
+# ------------------------------------------------------------- bucket pack
+def bucket_pack(leaves: list, total: int,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Stage an unfused bucket's leaves into one flat ``out_dtype`` buffer:
+    each leaf converted (round to nearest even), concatenated and
+    zero-padded to ``total``.  On the card one launch writes the whole
+    bucket, from the segment table of :func:`pack_segments` at dp=1 and
+    one chunk."""
+    if not leaves:
+        raise ValueError("bucket_pack: empty bucket")
+    for l in leaves:
+        _check_dtype(l, "bucket_pack")
+    if out_dtype not in _CODES:
+        raise TypeError(f"bucket_pack: out dtype {out_dtype} is not f32, "
+                        f"bf16 or f16")
+    sizes = [l.numel() for l in leaves]
+    if total < sum(sizes):
+        raise ValueError(f"bucket_pack: total {total} < {sum(sizes)} "
+                         f"elements in the bucket")
+    if not _on_cuda(leaves, "bucket_pack"):
+        return _ref.bucket_pack_ref(leaves, total, out_dtype)
+    _check_contiguous(leaves, "bucket_pack")
+    device = leaves[0].device
+    buf = torch.empty(total, dtype=out_dtype, device=device)
+    rows = _pack_rows(leaves, buf, pack_segments(sizes, total, 1, 1))
+    if rows:
+        _launch_segments("repro_bucket_pack", rows, device)
+        bucket_pack.launches += 1
+    return buf
+
+
+bucket_pack.launches = 0
+
+
 # -------------------------------------------------------------- fused pack
 def fused_pack(leaves: list, total: int, dp: int, chunks: int = 1) -> list:
     """Stage a bucket of gradient leaves into reduce-scatter-ready f32
@@ -194,15 +245,7 @@ def fused_pack(leaves: list, total: int, dp: int, chunks: int = 1) -> list:
     device = leaves[0].device
     lens = staged_lengths(total, dp, chunks)
     buf = torch.empty(sum(lens), dtype=torch.float32, device=device)
-    rows = []
-    for leaf, loff, soff, n in pack_segments(sizes, total, dp, chunks):
-        dst = buf.data_ptr() + 4 * soff
-        if leaf == _ZERO:
-            rows.append((0, _ZERO, dst, 0, n))
-        else:
-            l = leaves[leaf]
-            rows.append((l.data_ptr() + l.element_size() * loff,
-                         _CODES[l.dtype], dst, 0, n))
+    rows = _pack_rows(leaves, buf, pack_segments(sizes, total, dp, chunks))
     if rows:
         _launch_segments("repro_fused_pack", rows, device)
         fused_pack.launches += 1
@@ -382,7 +425,69 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
 rglru_scan.launches = 0
 
 
+# ------------------------------------------------------------------- WKV-6
+WKV_HEAD_DIMS = (32, 64, 128)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor):
+    """WKV-6 over (B,S,H,hd) with an (hd, hd) f32 state per (batch, head)
+    from zero: out_t = r_t^T (S + diag(u) k_t v_t^T), S <- diag(w_t) S +
+    k_t v_t^T, as :func:`.ref.rwkv6_ref`.  r, k and v share one dtype
+    (f32, bf16 or f16); w is f32 or r's dtype (an f32 decay is never
+    rounded); u is (H, hd) f32; hd in :data:`WKV_HEAD_DIMS`; any S.
+    Returns ``(out, final)``: out in r's dtype and the final state
+    (B,H,hd,hd) f32, indexed [b, h, key, value].  Forward only: on the
+    card it raises when autograd would need its gradient."""
+    from .build import load_library
+
+    if any(t.dim() != 4 for t in (r, k, v, w)):
+        raise ValueError("rwkv6_wkv: r, k, v and w must be (B, S, H, hd)")
+    B, S, H, hd = r.shape
+    if any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"rwkv6_wkv: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} and w {tuple(w.shape)} do not "
+                         f"match r {tuple(r.shape)}")
+    if tuple(u.shape) != (H, hd):
+        raise ValueError(f"rwkv6_wkv: u {tuple(u.shape)} is not ({H}, {hd})")
+    if hd not in WKV_HEAD_DIMS:
+        raise ValueError(f"rwkv6_wkv: head dim {hd} is not one of "
+                         f"{WKV_HEAD_DIMS}")
+    for t in (r, k, v, w, u):
+        _check_dtype(t, "rwkv6_wkv")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError("rwkv6_wkv: r, k and v must share one dtype")
+    if w.dtype not in (torch.float32, r.dtype):
+        raise TypeError(f"rwkv6_wkv: w is {w.dtype}, not f32 or r's dtype")
+    if u.dtype != torch.float32:
+        raise TypeError(f"rwkv6_wkv: u is {u.dtype}, not f32")
+    if not _on_cuda([r, k, v, w, u], "rwkv6_wkv"):
+        return _ref.rwkv6_ref(r, k, v, w, u)
+    _check_contiguous([r, k, v, w, u], "rwkv6_wkv")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        raise RuntimeError("rwkv6_wkv: the CUDA kernel is forward only; "
+                           "call it under torch.no_grad()")
+    out = torch.empty_like(r)
+    final = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if out.numel() == 0:
+        return out, final.zero_()
+    lib = load_library()
+    with torch.cuda.device(r.device):
+        rc = lib.repro_rwkv6_wkv(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), out.data_ptr(), final.data_ptr(), _CODES[r.dtype],
+            _CODES[w.dtype], B, S, H, hd,
+            torch.cuda.current_stream(r.device).cuda_stream)
+    _raise_on_error(lib, rc, "rwkv6_wkv")
+    rwkv6_wkv.launches += 1
+    return out, final
+
+
+rwkv6_wkv.launches = 0
+
+
 def reset_launches() -> None:
-    for fn in (convert_copy, fused_pack, fused_unpack, flash_attention,
-               rglru_scan):
+    for fn in (convert_copy, bucket_pack, fused_pack, fused_unpack,
+               flash_attention, rglru_scan, rwkv6_wkv):
         fn.launches = 0

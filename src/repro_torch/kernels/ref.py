@@ -4,7 +4,7 @@ oracles in ``repro/kernels/ref.py`` and of ``chunk_cuts`` in
 
 The CPU path of every kernel wrapper in :mod:`.ops` is one of these.  On
 the card the gradient-sync kernels are held bitwise equal to them, and the
-flash-attention and RG-LRU kernels within the tolerances of
+flash-attention, RG-LRU and WKV-6 kernels within the tolerances of
 ``tests/test_kernels.py``.
 """
 from __future__ import annotations
@@ -27,6 +27,15 @@ def chunk_cuts(total: int, chunks: int) -> list[int]:
 def convert_copy_ref(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """A copy of ``x`` in ``out_dtype`` (round to nearest even)."""
     return x.to(out_dtype, copy=True)
+
+
+def bucket_pack_ref(leaves: list, total: int,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Unfused-bucket staging: each leaf flattened and converted to
+    ``out_dtype`` (round to nearest even), concatenated and zero-padded to
+    ``total``."""
+    buf = torch.cat([l.reshape(-1).to(out_dtype) for l in leaves])
+    return F.pad(buf, (0, total - buf.numel()))
 
 
 def fused_pack_ref(leaves: list, total: int, dp: int,
@@ -98,3 +107,26 @@ def rglru_ref(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
         h = a[:, t] * h + g[:, t]
         out[:, t] = h
     return out.to(x.dtype)
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor):
+    """WKV-6 recurrence, sequential, in f32.  r, k, v, w: (B,S,H,hd); u:
+    (H,hd).  Per (batch, head) an (hd, hd) state S from zero, indexed
+    [key i, value j]:
+
+        out_t = r_t^T (S + diag(u) k_t v_t^T);   S <- diag(w_t) S + k_t v_t^T
+
+    Returns ``(out, final)``: out (B,S,H,hd) in r's dtype and the final
+    state (B,H,hd,hd) in f32, as the reference's ``_wkv6_scan`` returns
+    them."""
+    B, S, H, hd = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    ub = u.float()[None, :, :, None]
+    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    out = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], state + ub * kv)
+        state = wf[:, t, :, :, None] * state + kv
+    return out.to(r.dtype), state

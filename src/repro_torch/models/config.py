@@ -2,9 +2,9 @@
 
 The port's own copy of ``repro.models.config.ModelConfig``: the same field
 names, defaults, ``block_kind`` and ``reduced()`` smoke-test variant,
-restricted to the blocks this package implements: dense attention, and the
-RG-LRU hybrid of RecurrentGemma (``recurrent``).  No MLA, MoE, RWKV,
-encoder-decoder or VLM sub-configs yet.
+restricted to the blocks this package implements: dense attention, the
+RG-LRU hybrid of RecurrentGemma (``recurrent``) and RWKV-6 (``block ==
+"rwkv"``).  No MLA, MoE, encoder-decoder or VLM sub-configs yet.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ class RecurrentConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                # dense | hybrid
+    arch_type: str                # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,6 +39,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     window: Optional[int] = None  # sliding-window size for "attn" blocks
+    block: str = "attn"           # attn | rwkv (or hybrid via recurrent)
     recurrent: Optional[RecurrentConfig] = None
     dtype: str = "bfloat16"
     source: str = ""              # citation
@@ -48,11 +49,11 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def block_kind(self, layer: int) -> str:
-        """Block category of a layer: ``attn`` or ``rec``."""
+        """Block category of a layer: ``attn``, ``rec`` or ``rwkv``."""
         if self.recurrent is not None:
             return {"rec": "rec", "attn": "attn"}[
                 self.recurrent.pattern[layer % len(self.recurrent.pattern)]]
-        return "attn"
+        return self.block
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (3 for a recurrent hybrid, one

@@ -1,7 +1,7 @@
 """Decoder pieces shared by the stacked model (port of
 ``repro/models/model.py``: ``init_layer``, ``_sinusoid``, ``_embed``,
-``_unembed``, ``_layer_fwd`` and ``init_cache``, for dense attention blocks
-and the RG-LRU blocks of the recurrent hybrid)."""
+``_unembed``, ``_layer_fwd`` and ``init_cache``, for dense attention blocks,
+the RG-LRU blocks of the recurrent hybrid and RWKV-6 blocks)."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +23,10 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int,
                 for k, v in L.init_norm(cfg, cfg.d_model, "cpu").items()}
 
     p = {"ln1": norm()}
+    if cfg.block_kind(li) == "rwkv":
+        p["tmix"] = R.init_rwkv_block(gen, cfg, lead)
+        p["ln2"] = norm()
+        return p
     if cfg.block_kind(li) == "rec":
         p["rec"] = R.init_recurrent_block(gen, cfg, lead)
     else:
@@ -60,11 +64,23 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
                return_cache: bool = False, cache_len: int = 0,
                use_kernels: bool = False, li: int = 0):
     """Block ``li`` (pre-norm attention or RG-LRU block, then pre-norm
-    MLP).  Returns x, or (x, new_cache) when a cache is given or asked for,
-    as ``attention_fwd`` does.  ``use_kernels`` runs attention through the
-    flash-attention kernel and the RG-LRU recurrence through its kernel."""
+    MLP; or pre-norm RWKV time mix, then pre-norm channel mix).  Returns x,
+    or (x, new_cache) when a cache is given or asked for, as
+    ``attention_fwd`` does.  ``use_kernels`` runs attention through the
+    flash-attention kernel and the RG-LRU and WKV-6 recurrences through
+    their kernels."""
     want_cache = return_cache or cache is not None
     h = L.norm_fwd(p["ln1"], cfg, x)
+    if cfg.block_kind(li) == "rwkv":
+        tm_out, tnew = R.rwkv_time_mix(
+            p["tmix"], cfg, h, state=cache["tmix"] if cache else None,
+            use_kernel=use_kernels)
+        x = x + tm_out
+        h2 = L.norm_fwd(p["ln2"], cfg, x)
+        cm_out, cnew = R.rwkv_channel_mix(
+            p["tmix"], cfg, h2, state=cache["cmix"] if cache else None)
+        x = x + cm_out
+        return (x, {"tmix": tnew, "cmix": cnew}) if want_cache else x
     if cfg.block_kind(li) == "rec":
         r = R.recurrent_block_fwd(p["rec"], cfg, h, state=cache,
                                   return_state=return_cache,
@@ -85,10 +101,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """Per-layer zero decode state, as in the reference: an ``attn`` block
     holds ``{"k", "v"}`` of (batch, size, KV, hd) in ``cfg.dtype``, with
     size ``min(cache_len, window)`` for a sliding window; a ``rec`` block
-    holds ``{"h": (batch, L) f32, "conv": (batch, W-1, L) cfg.dtype}``."""
+    holds ``{"h": (batch, L) f32, "conv": (batch, W-1, L) cfg.dtype}``; an
+    ``rwkv`` block ``{"tmix": {"wkv": (batch, H, hd, hd) f32, "prev":
+    (batch, D)}, "cmix": {"prev": (batch, D)}}``, ``prev`` in cfg.dtype."""
     dt = getattr(torch, cfg.dtype)
     caches = []
     for li in range(cfg.n_layers):
+        if cfg.block_kind(li) == "rwkv":
+            wkv = (batch, cfg.n_heads, cfg.hd, cfg.hd)
+            prev = (batch, cfg.d_model)
+            caches.append({
+                "tmix": {"wkv": torch.zeros(wkv, dtype=torch.float32,
+                                            device=device),
+                         "prev": torch.zeros(prev, dtype=dt, device=device)},
+                "cmix": {"prev": torch.zeros(prev, dtype=dt,
+                                             device=device)}})
+            continue
         if cfg.block_kind(li) == "rec":
             Lw = cfg.recurrent.lru_width
             caches.append({

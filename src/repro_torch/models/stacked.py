@@ -7,11 +7,12 @@ them (:func:`leaves`), so a Plan's bucket indices name the same tensors in
 both packages.  A dense model is one ``plain`` group of ``n_layers``; for
 tinyllama that is 12 leaves: ``embed``, ``final_norm.scale``,
 ``groups[0].attn.{wk,wo,wq,wv}``, ``groups[0].{ln1,ln2}.scale``,
-``groups[0].mlp.{w_down,w_gate,w_up}`` and ``lm_head``.  A recurrent hybrid
-is a ``cycle`` group of whole pattern cycles plus a ``tail`` group of the
-layers left over, each holding one subtree ``b{j}`` per position of the
-cycle (recurrentgemma-9b: 12 x (rec, rec, attn) and a tail of (rec, rec),
-63 leaves).
+``groups[0].mlp.{w_down,w_gate,w_up}`` and ``lm_head``.  RWKV-6 is one
+``plain`` group too, its blocks holding ``ln1``, ``ln2`` and ``tmix`` (time
+mix and channel mix).  A recurrent hybrid is a ``cycle`` group of whole
+pattern cycles plus a ``tail`` group of the layers left over, each holding
+one subtree ``b{j}`` per position of the cycle (recurrentgemma-9b: 12 x
+(rec, rec, attn) and a tail of (rec, rec), 63 leaves).
 
 Where the reference scans a layer group, the port loops over the layers;
 ``remat`` rematerialises each layer (and each cross-entropy chunk) in the
@@ -21,11 +22,12 @@ the reference.
 Serving: :func:`init_cache` keeps the reference's stacked cache layout (a
 list per layer group, stacked like the parameters: ``{"k", "v"}`` of
 (count, B, size, KV, hd) for attention, ``{"h", "conv"}`` for RG-LRU
-blocks, under ``b{j}`` in a cycle), :func:`prefill` returns the last
-position's logits and fresh caches, and :func:`decode_step` advances one
-token per row, writing the caches in place.  ``use_kernels=True`` runs
-attention through the flash-attention kernel and the RG-LRU recurrence
-through its kernel, as the reference's ``use_kernels`` runs its Pallas
+blocks, under ``b{j}`` in a cycle, ``{"cmix": {"prev"}, "tmix": {"prev",
+"wkv"}}`` for RWKV blocks), :func:`prefill` returns the last position's
+logits and fresh caches, and :func:`decode_step` advances one token per
+row, writing the caches in place.  ``use_kernels=True`` runs attention
+through the flash-attention kernel and the RG-LRU and WKV-6 recurrences
+through their kernels, as the reference's ``use_kernels`` runs its Pallas
 kernels; the train step never sets it.
 """
 from __future__ import annotations
@@ -120,12 +122,20 @@ def _layers(params, cfg: ModelConfig):
     return _per_layer(params["groups"], cfg)
 
 
+def _sinusoid_positions(cfg: ModelConfig) -> bool:
+    """Whether the embedding gets sinusoidal positions: a model with no
+    rotary positions, unless it is recurrent (RG-LRU or RWKV), as in the
+    reference."""
+    return (cfg.rope_frac == 0.0 and cfg.block != "rwkv"
+            and cfg.recurrent is None)
+
+
 def _embed_positions(params, cfg: ModelConfig, tokens):
-    """Embedded tokens (B, S, D), with the sinusoid added for
-    ``rope_frac == 0``, and the positions (S,)."""
+    """Embedded tokens (B, S, D), with the sinusoid added where
+    :func:`_sinusoid_positions` says, and the positions (S,)."""
     x = M._embed(params, cfg, tokens)
     S = x.shape[1]
-    if cfg.rope_frac == 0.0 and cfg.recurrent is None:
+    if _sinusoid_positions(cfg):
         x = x + M._sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
     return x, torch.arange(S, device=x.device)
 
@@ -233,7 +243,7 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos):
     x = M._embed(params, cfg, token[:, None])
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
-    if cfg.rope_frac == 0.0 and cfg.recurrent is None:
+    if _sinusoid_positions(cfg):
         D = cfg.d_model
         dim = torch.arange(0, D, 2, device=x.device).float() / D
         ang = pos.float()[:, None] / torch.pow(10000.0, dim)
@@ -253,7 +263,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
             use_kernels: bool = False):
     """Run a (B, S) prompt; returns the last position's logits (B, vocab)
     and fresh caches: the prompt's k/v in caches of length ``cache_len``,
-    and each RG-LRU block's last state."""
+    and each recurrent block's last state."""
     x, positions = _embed_positions(params, cfg, tokens)
     per_layer = []
     for li, p in enumerate(_layers(params, cfg)):

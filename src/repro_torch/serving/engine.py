@@ -8,14 +8,18 @@ slots are retired and refilled.
 Two differences from the reference, neither of which changes a token:
 
 * Prefill runs attention through the flash-attention kernel and the RG-LRU
-  recurrence through its kernel (``ST.prefill(..., use_kernels=True)``);
-  the reference's engine leaves ``use_kernels`` at False.  On CPU tensors
-  the kernels' plain versions run.
+  and WKV-6 recurrences through their kernels (``ST.prefill(...,
+  use_kernels=True)``); the reference's engine leaves ``use_kernels`` at
+  False, and its WKV-6 kernel path returns no state to decode from.  The
+  port's WKV-6 kernel returns the final state.  On CPU tensors the
+  kernels' plain versions run.
 * Decode advances all slots in one batched call with one position per
   slot, where the reference vmaps a batch-1 step over the slots; each slot
   computes what the reference's step computes.  The caches (nested trees:
-  ``{"k", "v"}`` per attention block, ``{"h", "conv"}`` per RG-LRU block)
-  are updated in place.
+  ``{"k", "v"}`` per attention block, ``{"h", "conv"}`` per RG-LRU block,
+  ``{"cmix": {"prev"}, "tmix": {"prev", "wkv"}}`` per RWKV block) are
+  updated in place; they are installed, gathered and scattered leaf by
+  leaf in key order, which the prefill's caches share.
 
 A model with a sliding window is served only at ``cache_len <= window``:
 the reference's prefill returns a cache of ``cache_len`` rows while its
@@ -145,7 +149,7 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill(self, prompt):
         """Single-sequence prefill into a fresh cache region, attention
-        and the RG-LRU recurrence through their kernels."""
+        and the recurrences through their kernels."""
         logits, cache = ST.prefill(self.params, self.cfg,
                                    self._tensor(prompt)[None],
                                    self.cache_len, use_kernels=True)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions: the gradient-sync kernels bitwise, flash attention at the
 tolerances of ``tests/test_kernels.py`` and, against the plain version on
-f32 copies of its inputs, to about one bf16 ulp; the RG-LRU scan at the
-tolerances of ``tests/test_kernels.py``.  Marked ``cuda``: they skip on a
+f32 copies of its inputs, to about one bf16 ulp; the RG-LRU scan and the
+WKV-6 recurrence (its output and its final state) at the tolerances of
+``tests/test_kernels.py``; the bucket pack bitwise.  Marked ``cuda``: they skip on a
 machine without a CUDA device and run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -228,3 +229,82 @@ def test_rglru_scan_refuses_what_it_does_not_take(dev):
         K.rglru_scan(x[:, ::2], x[:, ::2], x[:, ::2], lam)
     with pytest.raises(RuntimeError):        # forward only
         K.rglru_scan(x.requires_grad_(), x, x, lam)
+
+
+# -------------------------------------------------------------- bucket pack
+@pytest.mark.parametrize("out_dt", DTYPES)
+@pytest.mark.parametrize("sizes", [[17], [31, 64], [5, 100000, 3],
+                                   [8192, 8192 * 2 + 1, 7]])
+@pytest.mark.parametrize("extra", [0, 13])
+def test_bucket_pack(dev, out_dt, sizes, extra):
+    """Mixed-dtype leaves into one buffer of each dtype, zero-padded, in
+    one launch; bitwise equal to the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(sum(sizes) + extra)
+    leaves = [torch.randn(s, generator=gen, device=dev).mul_(1.001).to(
+        DTYPES[i % 3]) for i, s in enumerate(sizes)]
+    total = sum(sizes) + extra
+    before = K.bucket_pack.launches
+    got = K.bucket_pack(leaves, total, out_dt)
+    assert K.bucket_pack.launches == before + 1
+    _same(got, R.bucket_pack_ref(leaves, total, out_dt))
+
+
+def test_bucket_pack_unaligned_leaves(dev):
+    """Leaves at 2-byte offsets take the kernel's scalar path."""
+    base = torch.randn(100003, device=dev).bfloat16()
+    leaves = [base[1:1000], base[1001:51002].float().contiguous(),
+              base[51003:]]
+    _same(K.bucket_pack(leaves, 100003), R.bucket_pack_ref(leaves, 100003))
+
+
+# -------------------------------------------------------------------- WKV-6
+def _wkv_case(dev, B, S, H, hd, dt, w_dt=torch.float32, seed=0):
+    """Model-like inputs: decays exp(-exp(-2 + noise)) near 0.87, as the
+    time mix's w0 = -2 gives them."""
+    gen = torch.Generator(device=dev).manual_seed(seed + S + hd)
+    r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
+        B, S, H, hd, generator=gen, device=dev))).to(w_dt)
+    u = 0.1 * torch.randn(H, hd, generator=gen, device=dev)
+    before = K.rwkv6_wkv.launches
+    out, final = K.rwkv6_wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert K.rwkv6_wkv.launches == before + 1
+    assert out.dtype == dt and out.shape == r.shape
+    assert final.dtype == torch.float32 and final.shape == (B, H, hd, hd)
+    want, want_final = R.rwkv6_ref(r, k, v, w, u)
+    # tests/test_kernels.py::test_rwkv6: 5e-4 for f32, 5e-2 for bf16
+    t = 5e-4 if dt == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=t, atol=t)
+    torch.testing.assert_close(final, want_final, rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dt,w_dt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float16, torch.float32)])
+@pytest.mark.parametrize("S", [1, 7, 129, 2048])
+def test_rwkv6_wkv_serving_shapes(dev, dt, w_dt, S):
+    """rwkv6-3b's prefill shape (B=1, 40 heads at hd 64) at ragged
+    lengths, with w in f32 (as the model passes it) and in r's dtype."""
+    _wkv_case(dev, 1, S, 40, 64, dt, w_dt)
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 300, 4, 32), (3, 17, 2, 128),
+                                      (1, 128, 2, 64), (2, 256, 1, 128)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rwkv6_wkv_batches_and_head_dims(dev, B, S, H, hd, dt):
+    _wkv_case(dev, B, S, H, hd, dt)
+
+
+def test_rwkv6_wkv_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 8, 2, 32, device=dev)
+    u = torch.zeros(2, 32, device=dev)
+    with pytest.raises(ValueError):          # u on the CPU
+        K.rwkv6_wkv(x, x, x, x, u.cpu())
+    with pytest.raises(ValueError):          # not contiguous
+        y = x.transpose(1, 2).contiguous().transpose(1, 2)
+        K.rwkv6_wkv(y, y, y, y, u)
+    with pytest.raises(RuntimeError):        # forward only
+        K.rwkv6_wkv(x.clone().requires_grad_(), x, x, x, u)
