@@ -21,15 +21,18 @@ Phases, each of which stops the run with a nonzero exit on failure:
     non-causal); at the path's shapes also against the plain version on f32
     copies of the inputs, to about one bf16 ulp of the output; timed per
     launch beside its plain version, ``scaled_dot_product_attention`` and
-    its bound.
+    its bound.  Each line names the route that served it (bf16 and f16 on
+    the tensor cores, f32 on the CUDA cores), the achieved TFLOP/s, and the
+    tensor-core kernel's registers and spills (from the build's ``-Xptxas
+    -v`` log) and shared memory per block.
 (d) the RG-LRU kernel against its plain version at recurrentgemma-9b's
     prefill shapes ((1,S,4096) bf16, S in 1, 129, 1024, 1984, 2048) and at
     off-path cases (f32, B=2, L=1000, lam in another dtype); timed at
     S=2048 beside its plain version and its HBM bound.
 (e) flash attention at recurrentgemma-9b's local attention (q (1,S,16,256),
     k and v (1,S,1,256), bf16, causal, window 2048, S in 1, 129, 1984,
-    2048, and S=3000 past the window), checked as in (c) and timed beside
-    SDPA and its bound.
+    2048, and S=3000 past the window), checked, timed and reported as in
+    (c).
 (f) the WKV-6 kernel against its plain version, output and final state, at
     rwkv6-3b's prefill shapes ((1,S,40,64), bf16 r, k, v with f32 w and u,
     S in 1, 129, 2048) and at off-path cases (f32, w in bf16, f16, B=2 at
@@ -62,7 +65,8 @@ Phases, each of which stops the run with a nonzero exit on failure:
     ``Workload(n_requests=32, prompt_lens=(16, 2048), new_tokens=(32,
     64))`` plus prompts of 1, 129 and 2048 tokens), decoded greedily to
     completion.  The launch counters are zeroed just before and read just
-    after: flash attention runs once per layer per prefill.
+    after: flash attention runs once per layer per prefill, every launch
+    on the tensor-core route.
 (l) serving checks, recurrentgemma-9b, as (j): the reduced model on the
     card against the CPU; full ``prefill`` with both kernels against
     ``prefill`` without them and both against f32 weights, at 129 and 1984
@@ -75,7 +79,7 @@ Phases, each of which stops the run with a nonzero exit on failure:
     1920), new_tokens=(32, 64))`` plus prompts of 1, 129, 1024 and 1984
     tokens), greedy.  The RG-LRU kernel runs once per RG-LRU layer per
     prefill (26 x 20) and flash attention once per attention layer (12 x
-    20).
+    20), every launch on the tensor-core route.
 (n) serving checks, rwkv6-3b, as (j): the reduced model on the card
     against the CPU; full ``prefill`` with the WKV-6 kernel against
     ``prefill`` without it and both against f32 weights, at 129 and 2048
@@ -94,6 +98,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -247,6 +252,9 @@ F32_PATHS_TOL = 2e-3
 # Flash attention in bf16 against the plain version on f32 copies of its
 # inputs: one bf16 rounding of the output (relative 2**-9) and f32 sums.
 FLASH_F32_RTOL, FLASH_F32_ATOL = 8e-3, 2e-3
+# The tensor-core flash kernel's registers and spills by (dtype, hd), read
+# from this run's build log (empty when the library was already built).
+FLASH_TC_PTXAS: dict = {}
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -310,12 +318,38 @@ def phase_card_and_build() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     path, secs, log = build.build()
-    print(f"build: {path.name} " + (f"compiled in {secs:.1f} s" if log
+    print(f"build: {path.name} " + (f"compiled in {secs:.1f} s" if secs
                                      else "already built"))
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    FLASH_TC_PTXAS.update(flash_tc_ptxas(log))
     build.load_library()
+
+
+def flash_tc_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each ``flash_tc_kernel`` instance in an
+    ``nvcc -Xptxas -v`` log, keyed by (dtype name, head dim)."""
+    out, key = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"flash_tc_kernelI(13__nv_bfloat16|6__half)Li(\d+)E",
+                          entry.group(1))
+            key = (("bf16" if "bfloat" in m.group(1) else "f16"),
+                   int(m.group(2))) if m else None
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(key, {})["spills"] = (int(m.group(1)),
+                                                 int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
 
 
 def phase_kernels(dev, strat, leaves) -> dict:
@@ -423,17 +457,22 @@ def phase_kernels(dev, strat, leaves) -> dict:
     return res
 
 
+def flash_flops(B, S, T_, H, hd, causal, window=None) -> int:
+    """Operations of one attention call: 2 FLOPs per multiply-add, QK and
+    PV, over the (query, key) pairs the mask keeps (causal: keys 0..qpos,
+    and at most ``window`` of them)."""
+    pairs = (sum(min(qp + 1, T_, window or T_) for qp in range(S))
+             if causal else S * T_)
+    return 4 * B * H * hd * pairs
+
+
 def flash_bound(B, S, T_, H, KV, hd, dtype, causal,
                 window=None) -> tuple[float, str]:
     """The least time for one attention call on these inputs: the larger
-    of its operations over the peak rate for the input dtype (2 FLOPs per
-    multiply-add, QK and PV, over the (query, key) pairs the mask keeps,
-    counted as the block-level causal skip sees them: keys 0..qpos, and at
-    most ``window`` of them) and its bytes (q, k, v read once, o written
-    once) over HBM bandwidth."""
-    pairs = (sum(min(qp + 1, T_, window or T_) for qp in range(S))
-             if causal else S * T_)
-    flops = 4 * B * H * hd * pairs
+    of its operations (:func:`flash_flops`) over the peak rate for the
+    input dtype and its bytes (q, k, v read once, o written once) over HBM
+    bandwidth."""
+    flops = flash_flops(B, S, T_, H, hd, causal, window)
     nbytes = torch.finfo(dtype).bits // 8 * (2 * B * S * H * hd
                                              + 2 * B * T_ * KV * hd)
     peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
@@ -447,12 +486,36 @@ def _flash_inputs(gen, dev, S, T_, H, KV, hd, dt):
             for shape in ((1, S, H, hd), (1, T_, KV, hd), (1, T_, KV, hd))]
 
 
+def _flash_route(dtype, hd) -> str:
+    """The route flash attention takes at this dtype (which
+    :func:`_flash_check` asserts), and for the tensor-core kernel its
+    registers, spills and shared memory per block at this head dim."""
+    dt = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype)
+    if dt is None:
+        return "route=CUDA cores"
+    use = FLASH_TC_PTXAS.get((dt, hd))
+    smem = build.load_library().repro_flash_attention_tc_smem(hd)
+    regs = (f"{use['registers']} registers, {use['spills'][0]}/"
+            f"{use['spills'][1]} bytes spilled/reloaded" if use
+            else "registers not in this run's build log")
+    return f"route=tensor cores ({regs}, {smem} bytes smem/block)"
+
+
 def _flash_check(what, q, k, v, causal=True, window=None) -> float:
     """The kernel against its plain version at the tolerances of
-    tests/test_kernels.py; returns the largest error."""
+    tests/test_kernels.py; returns the largest error.  Checks that the
+    dtype's route served the launch."""
+    counts = (K.flash_attention.tc_launches,
+              K.flash_attention.cuda_core_launches)
     got = K.flash_attention(q, k, v, causal=causal, window=window)
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    tc = q.dtype != torch.float32
+    if (K.flash_attention.tc_launches, K.flash_attention.cuda_core_launches
+            ) != (counts[0] + tc, counts[1] + (not tc)):
+        raise AssertionError(f"flash_attention {what}: {q.dtype} did not "
+                             f"take the {'tensor' if tc else 'CUDA'}-core "
+                             f"route")
     # tests/test_kernels.py: 2e-5 for f32, 2e-2 for bf16 (and f16)
     t = 2e-5 if q.dtype == torch.float32 else 2e-2
     err = float((got.float() - want.float()).abs().max())
@@ -467,10 +530,11 @@ def _flash_path_shape(what, q, k, v, window=None) -> dict:
     and against the plain version on f32 copies, then timed beside the
     plain version, SDPA and the bound."""
     err = _flash_check(what, q, k, v, window=window)
-    # the plain version rounds p to bf16 before the PV product and the
-    # kernel does not, so 2e-2 is loose at long rows (|o| ~ 0.05 at
-    # S=2048); against the plain version on f32 copies (no rounding but
-    # the inputs') the kernel is held to about one bf16 ulp of o
+    # the plain version rounds p to bf16 once before the PV product and the
+    # kernel splits it into hi = rn(p) and lo = rn(p - hi), so 2e-2 is
+    # loose at long rows (|o| ~ 0.05 at S=2048); against the plain version
+    # on f32 copies (no rounding but the inputs') the kernel is held to
+    # about one bf16 ulp of o
     got = K.flash_attention(q, k, v, window=window)
     want32 = R.flash_attention_ref(q.float(), k.float(), v.float(),
                                    window=window)
@@ -487,11 +551,13 @@ def _flash_path_shape(what, q, k, v, window=None) -> dict:
         qt, kt, vt, is_causal=True, enable_gqa=True))
     (_, S, H, hd), KV = q.shape, k.shape[2]
     bound, by = flash_bound(1, S, S, H, KV, hd, q.dtype, True, window)
+    tflops = flash_flops(1, S, S, H, hd, True, window) / ms / 1e9
     print(f"kernel flash_attention {what} q {tuple(q.shape)} kv "
           f"{tuple(k.shape)} causal: max_abs_err={err:.3e} (vs f32 copies "
           f"{err32:.3e}, max |o| {float(want32.abs().max()):.3f}) "
           f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-          f"bound_ms={bound:.5f} ({by})")
+          f"bound_ms={bound:.5f} ({by}) {tflops:.1f} TFLOP/s; "
+          f"{_flash_route(q.dtype, hd)}")
     return {"ms": ms, "plain_ms": plain, "library_ms": lib,
             "bound_ms": bound, "bound_by": by, "max_abs_err": err}
 
@@ -514,7 +580,8 @@ def phase_flash(dev) -> dict:
                                                 dt),
                            causal=causal, window=window)
         print(f"kernel flash_attention {what} (S={S}, T={T_}, H={H}, "
-              f"KV={KV}, hd={hd}): max_abs_err={err:.3e} within tolerance")
+              f"KV={KV}, hd={hd}): max_abs_err={err:.3e} within tolerance; "
+              f"{_flash_route(dt, hd)}")
     main = dict(res[max(FLASH_SEQS)])
     main["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
     return main
@@ -538,7 +605,7 @@ def phase_flash_recurrentgemma(dev) -> float:
         errs.append(err)
         print(f"kernel flash_attention S=3000 past the window {w} "
               f"(H={H}, KV={KV}, hd={hd}, {dt}): max_abs_err={err:.3e} "
-              f"within tolerance")
+              f"within tolerance; {_flash_route(dt, hd)}")
     return max(errs)
 
 
@@ -1120,6 +1187,7 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: getattr(K, name).launches for name in REPLACES}
+    flash_tc = K.flash_attention.tc_launches
     peak = torch.cuda.max_memory_allocated()
 
     if sorted(r.rid for r in done) != list(range(len(reqs))):
@@ -1143,6 +1211,11 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
         raise AssertionError(f"serving launches {launches}, want {want} "
                              f"(one per layer of the kernel's kind per "
                              f"prefill)")
+    # the cell serves bf16: every flash launch takes the tensor cores
+    if flash_tc != want["flash_attention"]:
+        raise AssertionError(f"serving: {flash_tc} of "
+                             f"{want['flash_attention']} flash launches on "
+                             f"the tensor-core route")
     m = eng.metrics()
     plens = [len(r.prompt) for r in reqs]
     print(f"serving {cell.arch}: {len(reqs)} requests (prompts "
@@ -1155,7 +1228,8 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
           f"ms; latency p50 {m['latency_p50_s']:.2f} s, p99 "
           f"{m['latency_p99_s']:.2f} s; {m['tokens_per_s']:.1f} tokens/s "
           f"over the span; max_memory_allocated {peak / 2**30:.2f} GiB")
-    print(f"launches on the serving path: {launches}")
+    print(f"launches on the serving path: {launches}; flash on the "
+          f"tensor-core route: {flash_tc} of {launches['flash_attention']}")
     return launches
 
 

@@ -45,6 +45,9 @@ _SIGNATURES = {
     "repro_fused_unpack": [_P, _I, _LL, _LL, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
+    "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P],
+    "repro_flash_attention_tc_smem": [_I],
     "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_rwkv6_wkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
@@ -74,10 +77,13 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless these sources are already built.
-    Returns (library path, seconds spent compiling, compiler output)."""
+    Returns (library path, seconds spent compiling, compiler output); the
+    output is kept beside the library, so a build found ready still
+    returns it (with 0 seconds)."""
     so = library_path()
     if so.exists():
-        return so, 0.0, ""
+        log = so.with_suffix(".log")
+        return so, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     if not os.access(BUILD_DIR, os.W_OK):
         raise RuntimeError(f"kernel build directory {BUILD_DIR} is not "
@@ -109,6 +115,9 @@ def build() -> tuple[Path, float, str]:
         obj.unlink(missing_ok=True)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp_log = so.with_suffix(f".{os.getpid()}.log")
+    tmp_log.write_text("".join(log))
+    os.replace(tmp_log, so.with_suffix(".log"))
     os.replace(tmp, so)   # atomic: concurrent ranks may build at once
     return so, time.perf_counter() - t0, "".join(log)
 

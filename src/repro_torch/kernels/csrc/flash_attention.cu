@@ -1,6 +1,8 @@
 // Forward flash attention (GQA, causal, sliding window) for Hopper (sm_90a),
 // bound to Python with ctypes through a plain C interface (see ../build.py
-// and ../ops.py::flash_attention).
+// and ../ops.py::flash_attention).  Two routes, chosen by dtype:
+//   bf16, f16: flash_tc_kernel, on the tensor cores (wgmma fed by TMA);
+//   f32:       flash_fwd_kernel, on the CUDA cores.
 //
 // Replaces the Pallas kernel of the JAX reference:
 //   flash_attention_kernel <- src/repro/kernels/flash_attention.py:82
@@ -14,76 +16,100 @@
 // m, l and acc in f32; the output is acc / max(l, 1e-30) in q's dtype.
 // Unlike the Pallas kernel (which asserts S % 128 == 0 and T % 128 == 0) it
 // takes any S and T: keys past T score -inf and so weigh exactly 0, and
-// rows past S are computed but not stored.
+// rows past S are computed but not stored.  A masked score is finfo.min and
+// not -inf so that a row whose first visited tile hides every key from it
+// gets weight exp(0) there, which the next live key's correction
+// exp(m_prev - m_new) = 0 wipes out, as in the Pallas kernel; -inf would
+// give NaN.
 //
-// What bounds it on this card: at tinyllama's largest prefill shape
-// (tinyllama-1.1b prefill, B=1, S=T=2048, H=32, KV=4, hd=64, bf16, causal)
-// the work is 4*H*hd*S(S+1)/2 = 17.2 GFLOP against 2.1 MB of q, k, v and o:
-// about 8,000 operations per byte, far above the card's ~295, so it is
-// bound by operations.  At the bf16 tensor-core peak (989 TFLOP/s) that is
-// 0.017 ms.  This kernel runs its FMAs on the CUDA cores in f32 (67 TFLOP/s
-// peak), so its own floor is ~0.26 ms; tensor cores (wgmma fed by TMA) are
-// the later step that closes the gap.  At recurrentgemma-9b's local
-// attention (S=T=2048, H=16, KV=1, hd=256, causal) the work is 34.4 GFLOP:
-// 0.035 ms at the tensor-core peak, ~0.51 ms on the CUDA cores.  There it
-// took 2.98 ms (11.5 TFLOP/s; chip_smoke.py phase (e), NVIDIA H100 80GB
-// HBM3, 700 W), slower than its plain version's two cuBLAS products
-// (1.51 ms): every FMA reads its k or v operand from shared memory, one
-// 16-byte load per four FMAs, so the kernel is bound by shared-memory
-// bandwidth near a quarter of the f32 peak.
+// What bounds it on this card.  At tinyllama-1.1b's largest prefill (B=1,
+// S=T=2048, H=32, KV=4, hd=64, bf16, causal) the work is
+// 4*H*hd*S(S+1)/2 = 17.2 GFLOP against 2.1 MB of q, k, v and o, about
+// 8,000 operations per byte, far above the card's ~295: bound by
+// operations, 0.0174 ms at the bf16 tensor-core peak (989 TFLOP/s).  At
+// recurrentgemma-9b's local attention (S=T=2048, H=16, KV=1, hd=256,
+// window 2048, causal) it is 34.4 GFLOP, 0.0348 ms.  The tensor-core route
+// does 1.5x that as tensor-core work (P.V twice, below): 25.8 and 51.6
+// GFLOP, plus the masked half of each diagonal tile.
 //
-// Design.  One block covers one (batch, KV head, block of BQ query rows) and
-// all G query heads of that KV head, as each Pallas program does, so each
-// K/V tile is read from memory once per group of heads.  BQ is as many rows
-// as fit kMaxThreads threads: at G=16 and hd=256 (16 x 16 threads per row)
-// that is one row per block, which still stages each K/V tile once for 16
-// heads, so staging stays a small share of the block's work.  NSUB = hd/16
-// threads share one (query row, head) pair: each owns 16 of its head dims,
-// holding that slice of q and of the f32 accumulator in registers.  K and V
-// tiles of BK keys (64, or 32 at hd 256, so the two f32 tiles take 64 KiB
-// at most and three blocks still fit an SM) are staged in shared memory as
-// f32; a thread reads its
-// dims of a key with 16-byte loads that all pairs of a warp share
-// (broadcast, no bank conflicts).  A dot product is summed across the NSUB
-// threads with warp shuffles.  Keys are scored kChunk at a time, so the
-// running max and the rescale of acc are applied once per chunk, not once
-// per key.  Key tiles that the causal or window mask hides from every row of
-// the block are never loaded (the Pallas kernel's pl.when(live) skip), and
-// blocks are issued heaviest (last query rows) first, so the causal
-// triangle does not leave a tail of long blocks.
+// The tensor-core route (flash_tc_kernel).  One block per (batch, query
+// head, tile of BM = 128 query rows), two consumer warpgroups of 64 rows
+// each; blocks are issued heaviest (last query rows) first, and the G heads
+// of one KV head run side by side, so their K/V tiles come from L2 (0.5 MB
+// and 2 MB per KV head at S=2048 against a 50 MB L2).  One thread loads
+// with TMA: Q once, then K and V tiles of BN keys (128, or 64 at hd 256)
+// into a two-stage ring, one mbarrier per tile, so tile j+1 lands while
+// tile j computes; the last warpgroup done with a stage refills it, so the
+// two warpgroups keep their own pace (one's softmax runs while the other's
+// wgmma do).  128-byte swizzle (64-byte at hd 32), rows split into
+// 64-element chunks; TMA's zero fill covers the ragged edges.  Two blocks
+// share an SM at hd <= 64 (128 registers a thread), one at hd 128 and 256
+// (165 and 198 KB of shared memory).  S = Q.K^T is wgmma m64nBNk16 with
+// both operands K-major in shared memory and f32 accumulation.  The scale (times log2 e) and the masks are applied in
+// registers, the masks only on tiles that cross the causal diagonal, the
+// window's edge or T; tiles the masks hide from every row of the block are
+// never loaded, and a warpgroup skips the tiles they hide from all its
+// rows (the Pallas kernel's pl.when(live)).  m and l stay in f32 and l sums
+// the f32 P.  O += P.V is wgmma with P from registers (the S accumulator's
+// layout is the A fragment's) and V from shared memory, MN-major (the
+// transpose bit).  P is split into two terms in the input dtype,
+// hi = rn(P) and lo = rn(P - hi), and O += hi.V + lo.V: one rounding of P
+// to bf16 (relative 2^-9) adds an error of the order of the check against
+// f32 copies of the inputs (rtol 8e-3, atol 2e-3); the split keeps P's
+// error below 2^-16.  The epilogue divides by max(l, 1e-30) in f32 and
+// stores the rows below S.
+// Next steps, not here: a warp-specialised producer with setmaxnreg,
+// ping-pong between the consumer warpgroups with the softmax overlapping
+// the next wgmma, persistent blocks, fp8, a backward kernel.
+//
+// The CUDA-core route (flash_fwd_kernel, f32 only: TF32 keeps about three
+// decimal digits, short of the f32 tolerance 2e-5).  One block covers one
+// (batch, KV head, block of BQ query rows) and all G query heads of that KV
+// head, so each K/V tile is read once per group of heads; BQ is as many
+// rows as fit kMaxThreads threads.  NSUB = hd/16 threads share one (query
+// row, head) pair: each owns 16 of its head dims, holding that slice of q
+// and of the f32 accumulator in registers.  K and V tiles of BK keys (64,
+// or 32 at hd 256) are staged in shared memory; a thread reads its dims of
+// a key with 16-byte loads that all pairs of a warp share (broadcast).  A
+// dot product is summed across the NSUB threads with warp shuffles; keys
+// are scored kChunk at a time, so the running max and the rescale of acc
+// are applied once per chunk.  Every FMA reads its k or v operand from
+// shared memory, one 16-byte load per four FMAs, so it is bound by
+// shared-memory bandwidth near a quarter of the f32 peak (67 TFLOP/s).
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, per launch at S=2048, causal (median of 20):
+//   tinyllama (1,2048,32,64) over 4 KV heads, bf16: 0.0877 ms, 196
+//     TFLOP/s (SDPA 0.0620, plain version 2.849; the CUDA-core kernel took
+//     1.368 here);
+//   recurrentgemma (1,2048,16,256) over 1 KV head, window 2048, bf16:
+//     0.1125 ms, 306 TFLOP/s (SDPA 0.0936, plain 1.501; CUDA cores 2.975).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+constexpr float kF32Min = -3.40282346638528859812e+38f;  // finfo(f32).min
+
+// ------------------------------------------------ CUDA-core route (f32)
 constexpr int kMaxThreads = 256;   // threads per block, at most
 constexpr int kDims = 16;          // head dims owned by one thread
 // keys per shared-memory tile: two f32 tiles of kBK x HD stay <= 64 KiB
 template <int HD> constexpr int kBK = HD >= 256 ? 32 : 64;
 constexpr int kChunk = 16;         // keys per online-softmax update
-constexpr float kF32Min = -3.40282346638528859812e+38f;  // finfo(f32).min
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
 }
 
 // Stage rows [t0, t0 + BK) of one KV head of k (or v) into `dst` as f32,
@@ -291,10 +317,519 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+// --------------------------------------- tensor-core route (bf16, f16)
+namespace tc {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tile shapes at head dim HD, for a 16-bit input type.
+template <int HD> struct Tile {
+  static constexpr int BN = HD >= 256 ? 64 : 128;  // keys per K/V tile
+  static constexpr int NWG = 2;                    // consumer warpgroups
+  static constexpr int BM = 64 * NWG;              // query rows per block
+  static constexpr int THREADS = 128 * NWG;
+  // two blocks per SM at hd <= 64: 128 registers a thread, a few spilled
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;
+  static constexpr int SW = HD >= 64 ? 128 : 64;   // swizzle span, bytes
+  static constexpr int EPR = SW / 2;               // elements per smem row
+  static constexpr int NCH = HD / EPR;             // row chunks across hd
+  static constexpr int STAGES = 2;                 // K/V ring depth
+  static constexpr int Q_BYTES = BM * HD * 2;
+  static constexpr int KV_BYTES = BN * HD * 2;     // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  // tiles, then the barriers (Q, K per stage, V per stage), plus the slack
+  // that aligns the tiles to 1024 bytes (the swizzle's period)
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers and TMA
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase after `parity` to complete.  A wait that outlasts
+// some seconds traps: a lost TMA completion fails the launch, not the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 28)) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (dims hd, heads, rows, batch) into shared
+// memory at `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(head), "r"(row),
+      "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// ---- wgmma
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N> __device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a swizzled tile (SW-byte rows, 8-row
+// groups SW*8 bytes apart).  K-major operands (Q, K) read 16 elements of a
+// row, inside one swizzle span, so the leading offset is unused; the
+// MN-major operand (V) spans one SW-byte atom in N, so both offsets are the
+// 8-row group stride.
+template <int SW>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint64_t kLayout = SW == 128 ? 1 : 2;  // 128B or 64B swizzle
+  constexpr uint64_t kSbo = (8 * SW) >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         (kSbo << 32) | (kLayout << 62);
+}
+
+#define REPRO_F8(d, i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define REPRO_F16(d, i) REPRO_F8(d, i), REPRO_F8(d, i + 8)
+#define REPRO_F32(d, i) REPRO_F16(d, i), REPRO_F16(d, i + 16)
+#define REPRO_F64(d) REPRO_F32(d, 0), REPRO_F32(d, 32)
+#define REPRO_S16                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define REPRO_S32                                                       \
+  REPRO_S16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "  \
+            "%27, %28, %29, %30, %31"
+#define REPRO_S64                                                       \
+  REPRO_S32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x N, f32) = [d +] A (64 x 16) . B (16 x N); A and B K-major in
+// shared memory.  acc = 0 overwrites d.
+template <typename T, int N>
+__device__ void mma_ss(float* d, uint64_t a, uint64_t b, int acc);
+// d (64 x N, f32) += A (64 x 16, registers) . B (16 x N); B MN-major in
+// shared memory.
+template <typename T, int N>
+__device__ void mma_rs(float* d, const uint32_t* a, uint64_t b);
+
+#define REPRO_MMA(TY, CT)                                                    \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_ss<CT, 64>(float* d, uint64_t a,       \
+                                                 uint64_t b, int acc) {      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+                 " {" REPRO_S32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"           \
+                 : REPRO_F32(d, 0)                                           \
+                 : "l"(a), "l"(b), "r"(acc));                                \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_ss<CT, 128>(float* d, uint64_t a,      \
+                                                  uint64_t b, int acc) {     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+                 " {" REPRO_S64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"           \
+                 : REPRO_F64(d)                                              \
+                 : "l"(a), "l"(b), "r"(acc));                                \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_rs<CT, 32>(float* d, const uint32_t* a, \
+                                                 uint64_t b) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY     \
+                 " {" REPRO_S16 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n" \
+                 "}\n"                                                       \
+                 : REPRO_F16(d, 0)                                           \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                   "r"(1));                                                  \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_rs<CT, 64>(float* d, const uint32_t* a, \
+                                                 uint64_t b) {               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+                 " {" REPRO_S32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n" \
+                 "}\n"                                                       \
+                 : REPRO_F32(d, 0)                                           \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                   "r"(1));                                                  \
+  }
+
+REPRO_MMA("bf16", __nv_bfloat16)
+REPRO_MMA("f16", __half)
+
+// Two floats rounded to the 16-bit type and packed (a in the low half);
+// ra and rb get the rounded values back as floats.
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float a, float b, float& ra,
+                                                  float& rb) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    ra = __low2float(v);
+    rb = __high2float(v);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <> struct Pair<__half> {
+  static __device__ __forceinline__ uint32_t pack(float a, float b, float& ra,
+                                                  float& rb) {
+    const __half2 v = __floats2half2_rn(a, b);
+    ra = __low2float(v);
+    rb = __high2float(v);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+// 2^x on the special-function unit (relative error about 2^-22); 2^-inf
+// is 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
+                int S, int T_, int H, int G, int causal, int window,
+                float scale_log2) {
+  using C = Tile<HD>;
+  constexpr int BN = C::BN, SW = C::SW, EPR = C::EPR;
+  constexpr int NS = BN / 2;   // S accumulator floats per thread
+  constexpr int NO = HD / 2;   // O accumulator floats per thread
+  constexpr int KPR = EPR / 16;  // k-steps of Q.K^T inside one row chunk
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int done_with[Tile<HD>::STAGES];   // warpgroups done, per stage
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t bar_q = base + C::BAR_OFF;
+  // stage s: K at kv(s), V at kv(s) + KV_BYTES; barriers after Q's
+  auto kv_tile = [&](int s) { return base + C::Q_BYTES + s * 2 * C::KV_BYTES; };
+  auto k_bar = [&](int s) { return bar_q + 8 * (1 + s); };
+  auto v_bar = [&](int s) { return bar_q + 8 * (1 + C::STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int qblk = gridDim.y - 1 - blockIdx.y;   // heaviest blocks first
+  const int kvh = h / G;
+  const int q0 = qblk * C::BM;
+
+  // key tiles any row of this block can see
+  const int q_last = min(q0 + C::BM, S) - 1;
+  int k_lo = 0, k_hi = T_;
+  if (causal) k_hi = min(T_, q_last + 1);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int j0 = k_lo / BN;
+  const int nt = max(0, (k_hi + BN - 1) / BN - j0);
+
+  auto load_kv = [&](int j) {
+    const int s = j % C::STAGES, t0 = (j0 + j) * BN;
+    mbar_expect_tx(k_bar(s), C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+      tma_load(kv_tile(s) + c * BN * SW, &kmap, k_bar(s), c * EPR, kvh, t0,
+               b);
+    mbar_expect_tx(v_bar(s), C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+      tma_load(kv_tile(s) + C::KV_BYTES + c * BN * SW, &vmap, v_bar(s),
+               c * EPR, kvh, t0, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      done_with[s] = 0;
+      mbar_init(k_bar(s), 1);
+      mbar_init(v_bar(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c)
+      tma_load(q_s + c * C::BM * SW, &qmap, bar_q, c * EPR, h, q0, b);
+    for (int j = 0; j < min(nt, C::STAGES); ++j) load_kv(j);
+  }
+
+  // This thread's accumulator rows are row0 and row0 + 8, its columns
+  // col, col + 1 of every 8 (the wgmma accumulator layout).
+  const int r_lo = q0 + 64 * wg;                 // the warpgroup's rows
+  const int row0 = r_lo + 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  const bool wg_live = r_lo < S;
+  float oacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.f;
+  float m[2] = {kF32Min, kF32Min}, l[2] = {0.f, 0.f};
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < nt; ++j) {
+    const int s = j % C::STAGES;
+    const uint32_t ph = (j / C::STAGES) & 1;
+    const int t0 = (j0 + j) * BN;
+    const bool skip = !wg_live || (causal && t0 > r_lo + 63) ||
+                      (window > 0 && t0 + BN - 1 <= r_lo - window);
+    mbar_wait(k_bar(s), ph);
+    if (!skip) {
+      // S = Q . K^T
+      float sacc[NS];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / KPR, w = kk % KPR;
+        mma_ss<T, BN>(
+            sacc,
+            smem_desc<SW>(q_s + c * C::BM * SW + wg * 64 * SW + w * 32, 1),
+            smem_desc<SW>(kv_tile(s) + c * BN * SW + w * 32, 1), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<NS>(sacc);
+
+      // scale (log2 domain), mask, online softmax
+      const bool masked = (causal && t0 + BN - 1 > r_lo) ||
+                          (window > 0 && t0 <= r_lo + 63 - window) ||
+                          t0 + BN > T_;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float x = sacc[i] * scale_log2;
+        if (masked) {
+          const int kpos = t0 + 8 * (i / 4) + col + (i & 1);
+          const int qpos = row0 + 8 * ((i / 2) & 1);
+          bool ok = !causal || kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          x = ok ? x : kF32Min;
+          if (kpos >= T_) x = -INFINITY;       // no such key: weight 0
+        }
+        sacc[i] = x;
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int i = 2 * r; i < NS; i += 4)
+          mx = fmaxf(mx, fmaxf(sacc[i], sacc[i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        corr[r] = fast_exp2(m[r] - mx);
+        m[r] = mx;
+      }
+      // P in f32, summed into l, then split into hi + lo in T, packed as
+      // the A fragments of P . V (k-step kk takes pairs 4kk .. 4kk+3)
+      uint32_t phi[NS / 2], plo[NS / 2];
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int r = (i / 2) & 1;
+        const float p0 = fast_exp2(sacc[i] - m[r]);
+        const float p1 = fast_exp2(sacc[i + 1] - m[r]);
+        psum[r] += p0 + p1;
+        float h0, h1, unused0, unused1;
+        phi[i / 2] = Pair<T>::pack(p0, p1, h0, h1);
+        plo[i / 2] = Pair<T>::pack(p0 - h0, p1 - h1, unused0, unused1);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+#pragma unroll
+      for (int i = 0; i < NO; ++i) oacc[i] *= corr[(i / 2) & 1];
+
+      // O += hi . V + lo . V
+      mbar_wait(v_bar(s), ph);
+      fence_regs<NO>(oacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c) {
+          const uint64_t dv = smem_desc<SW>(
+              kv_tile(s) + C::KV_BYTES + c * BN * SW + kk * 16 * SW,
+              (8 * SW) >> 4);
+          mma_rs<T, EPR>(oacc + c * (EPR / 2), phi + 4 * kk, dv);
+          mma_rs<T, EPR>(oacc + c * (EPR / 2), plo + 4 * kk, dv);
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<NO>(oacc);
+    } else {
+      mbar_wait(v_bar(s), ph);
+    }
+    // The last warpgroup done with stage s refills it: its own wgmma have
+    // completed (wait_group 0) and the others' had before they counted in,
+    // so no block-wide barrier ties the warpgroups to one pace.
+    if (j + C::STAGES < nt && tid % 128 == 0) {
+      __threadfence_block();
+      if (atomicAdd(&done_with[s], 1) == C::NWG - 1) {
+        done_with[s] = 0;
+        load_kv(j + C::STAGES);
+      }
+    }
+  }
+
+  if (wg_live) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qpos = row0 + 8 * r;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      if (qpos < S) {
+        T* out = o + ((long long)b * S + qpos) * H * HD + (long long)h * HD +
+                 col;
+#pragma unroll
+        for (int n8 = 0; n8 < HD / 8; ++n8) {
+          float u0, u1;
+          *reinterpret_cast<uint32_t*>(out + 8 * n8) =
+              Pair<T>::pack(oacc[4 * n8 + 2 * r] * inv,
+                            oacc[4 * n8 + 2 * r + 1] * inv, u0, u1);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, without linking libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a (B, L, NH, HD) tensor of 16-bit T, read in boxes of
+// EPR head dims x 1 head x `rows` rows.
+template <typename T, int HD>
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
+                int rows) {
+  using C = Tile<HD>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)NH, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
+                                 (cuuint64_t)NH * HD * 2,
+                                 (cuuint64_t)L * NH * HD * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::EPR, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map,
+            std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int S, int T_, int H, int KV, int causal,
+                   int window, cudaStream_t stream) {
+  using C = Tile<HD>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_map<T, HD>(&qmap, q, B, S, H, C::BM) ||
+      !encode_map<T, HD>(&kmap, k, B, T_, KV, C::BN) ||
+      !encode_map<T, HD>(&vmap, v, B, T_, KV, C::BN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_tc_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, (S + C::BM - 1) / C::BM, B);
+  const float scale_log2 = kLog2e / sqrtf((float)HD);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<T*>(o), S, T_, H, H / KV, causal, window,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int T_, int H, int KV, int hd,
+                        int causal, int window, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch<T, 32>(q, k, v, o, B, S, T_, H, KV, causal, window,
+                           stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, B, S, T_, H, KV, causal, window,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, B, S, T_, H, KV, causal, window,
+                            stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, S, T_, H, KV, causal, window,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
 }  // namespace
 
-// o = attention(q, k, v) on `stream`.  dtype: 0 f32, 1 bf16, 2 f16 (q, k, v
-// and o alike); hd in {32, 64, 128, 256}; H % KV == 0; window <= 0 means none;
+// o = attention(q, k, v) on `stream` on the CUDA cores: dtype 0 (f32) only;
+// hd in {32, 64, 128, 256}; H % KV == 0; window <= 0 means none;
 // (hd / 16) * (H / KV) <= 256; vec: k and v start 16-byte aligned.
 // Returns the launch's cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,
@@ -302,20 +837,47 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int S, int T, int H, int KV, int hd,
                                      int causal, int window, int vec,
                                      void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_hd<float>(q, k, v, o, B, S, T, H, KV, hd, causal,
+                                 window, vec,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// o = attention(q, k, v) on `stream` on the tensor cores: dtype 1 (bf16) or
+// 2 (f16), q, k and v alike and starting 16-byte aligned (TMA reads them);
+// hd in {32, 64, 128, 256}; H % KV == 0; window <= 0 means none.  Returns
+// the launch's cudaError_t.
+extern "C" int repro_flash_attention_tc(const void* q, const void* k,
+                                        const void* v, void* o, int dtype,
+                                        int B, int S, int T, int H, int KV,
+                                        int hd, int causal, int window,
+                                        void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32:
-      return (int)dispatch_hd<float>(q, k, v, o, B, S, T, H, KV, hd, causal,
-                                     window, vec, st);
     case kBF16:
-      return (int)dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd,
-                                             causal, window, vec, st);
+      return (int)tc::dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV,
+                                                 hd, causal, window, st);
     case kF16:
-      return (int)dispatch_hd<__half>(q, k, v, o, B, S, T, H, KV, hd, causal,
-                                      window, vec, st);
+      return (int)tc::dispatch_hd<__half>(q, k, v, o, B, S, T, H, KV, hd,
+                                          causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of one block of the tensor-core kernel at head dim
+// hd, in bytes; 0 for a head dim it does not take.
+extern "C" int repro_flash_attention_tc_smem(int hd) {
+  switch (hd) {
+    case 32: return tc::Tile<32>::SMEM;
+    case 64: return tc::Tile<64>::SMEM;
+    case 128: return tc::Tile<128>::SMEM;
+    case 256: return tc::Tile<256>::SMEM;
+    default: return 0;
   }
 }

@@ -328,7 +328,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (f32, bf16 or f16), hd in :data:`FLASH_HEAD_DIMS`, H % KV == 0; any S
     and T.  Causal and window masks count positions from 0, as
     :func:`.ref.flash_attention_ref` does.  Forward only: on the card it
-    raises when autograd would need its gradient."""
+    raises when autograd would need its gradient.
+
+    On the card the dtype picks the kernel: bf16 and f16 run on the tensor
+    cores (``repro_flash_attention_tc``, counted in ``.tc_launches``),
+    f32 on the CUDA cores (``repro_flash_attention``, counted in
+    ``.cuda_core_launches``; it takes at most 256 // (hd // 16) query heads
+    per KV head).  ``.launches`` counts both.  The tensor-core kernel reads
+    q, k and v with TMA, which needs 16-byte-aligned bases: a q, k or v
+    that starts off a 16-byte boundary is first copied into a fresh
+    tensor."""
     from .build import load_library
 
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -344,13 +353,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} is not one of "
                          f"{FLASH_HEAD_DIMS}")
-    if hd // 16 * (H // KV) > _FLASH_MAX_THREADS:
-        raise ValueError(f"flash_attention: {H // KV} query heads per KV "
-                         f"head at head dim {hd} exceed one block")
     for t in (q, k, v):
         _check_dtype(t, "flash_attention")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
+    tensor_cores = q.dtype != torch.float32
+    if not tensor_cores and hd // 16 * (H // KV) > _FLASH_MAX_THREADS:
+        raise ValueError(f"flash_attention: {H // KV} query heads per KV "
+                         f"head at head dim {hd} exceed one block of the "
+                         f"f32 kernel")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     if not _on_cuda([q, k, v], "flash_attention"):
@@ -362,18 +373,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            "only; call it under torch.no_grad()")
     out = torch.empty_like(q)
     lib = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _CODES[q.dtype], B, S, T, H, KV, hd, int(causal), window or 0,
-            int(_aligned(k.data_ptr(), v.data_ptr())),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        if tensor_cores:
+            q, k, v = (t if _aligned(t.data_ptr()) else t.clone()
+                       for t in (q, k, v))
+            rc = lib.repro_flash_attention_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _CODES[q.dtype], B, S, T, H, KV, hd, int(causal),
+                window or 0, stream)
+        else:
+            rc = lib.repro_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _CODES[q.dtype], B, S, T, H, KV, hd, int(causal),
+                window or 0, int(_aligned(k.data_ptr(), v.data_ptr())),
+                stream)
     _raise_on_error(lib, rc, "flash_attention")
     flash_attention.launches += 1
+    if tensor_cores:
+        flash_attention.tc_launches += 1
+    else:
+        flash_attention.cuda_core_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.cuda_core_launches = 0
 
 
 # ------------------------------------------------------------------ RG-LRU
@@ -491,3 +517,4 @@ def reset_launches() -> None:
     for fn in (convert_copy, bucket_pack, fused_pack, fused_unpack,
                flash_attention, rglru_scan, rwkv6_wkv):
         fn.launches = 0
+    flash_attention.tc_launches = flash_attention.cuda_core_launches = 0

@@ -93,22 +93,32 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 
 # --------------------------------------------------------- flash attention
+def _flash_counts():
+    f = K.flash_attention
+    return f.launches, f.tc_launches, f.cuda_core_launches
+
+
 def _flash_case(dev, B, S, T, H, KV, hd, dt, causal=True, window=None):
     gen = torch.Generator(device=dev).manual_seed(S * 7 + T + H + hd)
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
     k = torch.randn(B, T, KV, hd, generator=gen, device=dev).to(dt)
     v = torch.randn(B, T, KV, hd, generator=gen, device=dev).to(dt)
-    before = K.flash_attention.launches
+    before = _flash_counts()
     got = K.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert K.flash_attention.launches == before + 1
+    # bf16 and f16 take the tensor-core kernel, f32 the CUDA-core one
+    tc = dt != torch.float32
+    assert _flash_counts() == (before[0] + 1, before[1] + tc,
+                               before[2] + (not tc))
     want = R.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dt and got.shape == q.shape
     # tests/test_kernels.py: 2e-5 for f32, 2e-2 for bf16 (and f16)
     t = 2e-5 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
-    # the kernel keeps p in f32: against the plain version on f32 copies it
-    # is off by about one bf16 ulp of the output
+    # f32 keeps p in f32; the tensor cores take p in q's dtype, so the
+    # kernel splits it into hi = rn(p) and lo = rn(p - hi) and adds both
+    # products, which keeps p to about 16 bits: against the plain version
+    # on f32 copies either route is off by about one bf16 ulp of the output
     want32 = R.flash_attention_ref(q.float(), k.float(), v.float(),
                                    causal=causal, window=window)
     torch.testing.assert_close(got.float(), want32, rtol=8e-3, atol=2e-3)
@@ -166,6 +176,46 @@ def test_flash_attention_unaligned_kv(dev, dt):
     torch.testing.assert_close(got.float(),
                                R.flash_attention_ref(q, k, v).float(),
                                rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S", [2047, 2048])
+def test_flash_attention_path_shapes(dev, dt, S):
+    """The serving paths' prefill shapes: tinyllama-1.1b's 32 query heads
+    over 4 KV heads at hd 64, and recurrentgemma-9b's 16 over 1 at hd 256
+    with window 2048."""
+    _flash_case(dev, 1, S, S, 32, 4, 64, dt)
+    _flash_case(dev, 1, S, S, 16, 1, 256, dt, window=2048)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 128, 129, 2047, 2048])
+def test_flash_attention_tile_edges(dev, S, hd):
+    """Lengths on either side of the tensor-core kernel's tiles (128 query
+    rows; 128 keys, 64 at hd 256), with T = S and T = S + 1, causal and
+    not."""
+    H, KV = (8, 2) if hd == 64 else (4, 1)
+    for T, causal in ((S, True), (S + 1, True), (S, False)):
+        _flash_case(dev, 1, S, T, H, KV, hd, torch.bfloat16, causal)
+
+
+@pytest.mark.parametrize("S,T", [(63, 129), (129, 63), (2048, 2047),
+                                 (65, 2047)])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+def test_flash_attention_two_batches(dev, S, T, dt):
+    """B=2 with S and T on different sides of a tile edge."""
+    _flash_case(dev, 2, S, T, 8, 2, 64, dt)
+    _flash_case(dev, 2, S, T, 4, 1, 256, dt, window=100)
+
+
+@pytest.mark.parametrize("window", [1, 37, 64, 100, 129, 200])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_window_inside_a_tile(dev, window, hd):
+    """Windows whose edge falls inside a key tile, so tiles at the edge
+    mask some rows' keys and skip tiles no row of a block sees."""
+    H, KV = (8, 2) if hd == 64 else (4, 1)
+    _flash_case(dev, 1, 700, 700, H, KV, hd, torch.bfloat16, True, window)
+    _flash_case(dev, 1, 300, 300, H, KV, hd, torch.float16, False, window)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev):

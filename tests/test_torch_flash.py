@@ -132,6 +132,143 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
         K.flash_attention(q, k, v, window=0)
 
 
+# ----------------------------------- the tensor-core kernel's algorithm
+def _tc_emulation(q, k, v, causal=True, window=None, split=True,
+                  mask_value=float(np.finfo(np.float32).min), round_out=True):
+    """The tensor-core kernel of ``csrc/flash_attention.cu``
+    (``flash_tc_kernel``) step by step in plain PyTorch: blocks of 128
+    query rows as two warpgroups of 64, key tiles of 128 (64 at hd 256),
+    the tiles the masks hide from every row of a block never visited and a
+    warpgroup skipping those they hide from all its rows; scores in f32
+    times log2(e)/sqrt(hd), masked to ``mask_value`` (the kernel's
+    finfo(f32).min, also m's start) and keys past T to -inf; the online
+    softmax in base 2 with m and l in f32 and l summed from the f32 P; P . V as products of
+    16-bit operands summed in f32, P split into hi = rn(P) and lo =
+    rn(P - hi) (``split``) or rounded once; the output acc / max(l, 1e-30),
+    rows past S dropped, rounded to q's dtype unless ``round_out`` is
+    False."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dt = q.dtype
+    BM, BN = 128, 64 if hd >= 256 else 128
+    f32 = torch.float32
+    qf = q.to(f32).permute(0, 2, 1, 3)                       # (B,H,S,hd)
+    kf, vf = (t.to(f32).repeat_interleave(H // KV, dim=2).permute(0, 2, 1, 3)
+              for t in (k, v))                               # (B,H,T,hd)
+    scale = (torch.tensor(1.4426950408889634, dtype=f32)
+             / torch.sqrt(torch.tensor(float(hd), dtype=f32)))
+    out = torch.zeros(B, H, S, hd, dtype=f32)
+    for q0 in range(0, S, BM):
+        q_last = min(q0 + BM, S) - 1
+        k_lo, k_hi = 0, T
+        if causal:
+            k_hi = min(T, q_last + 1)
+        if window:
+            k_lo = max(0, q0 - window + 1)
+        j0 = k_lo // BN
+        nt = max(0, -(-k_hi // BN) - j0)
+        for r_lo in range(q0, min(q0 + BM, S), 64):          # warpgroups
+            rows = torch.arange(r_lo, r_lo + 64)
+            qt = torch.zeros(B, H, 64, hd)
+            qt[:, :, :min(64, S - r_lo)] = qf[:, :, r_lo:r_lo + 64]
+            m = torch.full((B, H, 64), mask_value)
+            l = torch.zeros(B, H, 64)
+            acc = torch.zeros(B, H, 64, hd)
+            for j in range(nt):
+                t0 = (j0 + j) * BN
+                if ((causal and t0 > r_lo + 63)
+                        or (window and t0 + BN - 1 <= r_lo - window)):
+                    continue                     # hidden from every row
+                keys = torch.arange(t0, t0 + BN)
+                kt, vt = torch.zeros(B, H, BN, hd), torch.zeros(B, H, BN, hd)
+                n = max(0, min(BN, T - t0))      # TMA's zero fill past T
+                kt[:, :, :n], vt[:, :, :n] = (kf[:, :, t0:t0 + n],
+                                              vf[:, :, t0:t0 + n])
+                x = (qt @ kt.transpose(-1, -2)) * scale
+                ok = torch.ones(64, BN, dtype=torch.bool)
+                if causal:
+                    ok &= keys[None, :] <= rows[:, None]
+                if window:
+                    ok &= keys[None, :] > rows[:, None] - window
+                x = torch.where(ok, x, torch.tensor(mask_value))
+                x = torch.where(keys >= T, torch.tensor(-np.inf), x)
+                mx = torch.maximum(m, x.amax(-1))
+                corr = torch.exp2(m - mx)
+                p = torch.exp2(x - mx[..., None])
+                l = l * corr + p.sum(-1)
+                hi = p.to(dt).to(f32)
+                pv = hi @ vt
+                if split:
+                    pv = pv + (p - hi).to(dt).to(f32) @ vt
+                acc = acc * corr[..., None] + pv
+                m = mx
+            o = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
+            out[:, :, r_lo:r_lo + 64] = o[:, :, :min(64, S - r_lo)]
+    out = out.permute(0, 2, 1, 3)
+    return out.to(dt) if round_out else out
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (1, 128, 4, 4, 64, True, None),
+    (2, 256, 4, 2, 64, True, None),
+    (1, 256, 8, 1, 32, True, None),
+    (1, 256, 2, 2, 128, True, None),
+    (1, 256, 4, 1, 256, True, None),
+    (1, 384, 4, 1, 256, True, 100),
+    (1, 256, 4, 2, 64, False, 37),
+    (1, 128, 4, 2, 64, False, None),
+])
+def test_flash_tc_emulation_matches_jax(dt, B, S, H, KV, hd, causal,
+                                        window):
+    """The tensor-core kernel's algorithm against the JAX oracle and the
+    Pallas kernel in interpret mode, at tests/test_kernels.py's 2e-2."""
+    js, ts = _qkv(B, S, S, H, KV, hd, dt, seed=S + hd)
+    got = _np(_tc_emulation(*ts, causal=causal, window=window))
+    for want in (JR.flash_attention_ref(*js, causal=causal, window=window),
+                 JFA.flash_attention_kernel(*js, causal=causal,
+                                            window=window, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   **tol(dt))
+
+
+@pytest.mark.parametrize("S", [63, 64, 65, 127, 128, 129, 2047, 2048])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_tc_emulation_split_p(S, hd):
+    """In bf16, at lengths on either side of the kernel's tiles, the
+    algorithm with P split into hi + lo stays within the card's check
+    against the plain version on f32 copies (rtol 8e-3, atol 2e-3), and
+    before the output's rounding it is at least 16 times closer to them
+    than with P rounded once to bf16: the rounding of P is what the split
+    takes out."""
+    H, KV, window = (4, 2, None) if hd == 64 else (2, 1, 2048)
+    _, (q, k, v) = _qkv(1, S, S, H, KV, hd, "bf16", seed=S * hd)
+    want = R.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 window=window)
+    got = _tc_emulation(q, k, v, window=window)
+    torch.testing.assert_close(got.float(), want, rtol=8e-3, atol=2e-3)
+    e_split = (_tc_emulation(q, k, v, window=window, round_out=False)
+               - want).abs().max()
+    e_once = (_tc_emulation(q, k, v, window=window, split=False,
+                            round_out=False) - want).abs().max()
+    assert e_split * 16 < e_once, (float(e_split), float(e_once))
+
+
+@pytest.mark.parametrize("window", [37, 100])
+def test_flash_tc_emulation_masks_with_finfo_min(window):
+    """A row whose first visited tile hides every key from it (its window
+    starts in a later tile) takes weight exp(0) there, which the next live
+    key's correction wipes out: with finfo(f32).min as the masked score
+    and m's start the algorithm matches the JAX oracle; with -inf that row
+    is NaN."""
+    js, ts = _qkv(1, 300, 300, 4, 2, 64, "f32", seed=window)
+    want = np.asarray(JR.flash_attention_ref(*js, window=window))
+    got = _tc_emulation(*ts, window=window)
+    np.testing.assert_allclose(_np(got), want, **tol("f32"))
+    nan = _tc_emulation(*ts, window=window, mask_value=-np.inf)
+    assert bool(torch.isnan(nan).any())
+
+
 # ---------------------------------------------------------- in the model
 @pytest.mark.parametrize("use_flash,masked", [(True, False), (False, False),
                                               (True, True)])
