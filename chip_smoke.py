@@ -26,17 +26,24 @@ Phases, each of which stops the run with a nonzero exit on failure:
     tensor-core kernel's registers and spills (from the build's ``-Xptxas
     -v`` log) and shared memory per block.
 (d) the RG-LRU kernel against its plain version at recurrentgemma-9b's
-    prefill shapes ((1,S,4096) bf16, S in 1, 129, 1024, 1984, 2048) and at
-    off-path cases (f32, B=2, L=1000, lam in another dtype); timed at
-    S=2048 beside its plain version and its HBM bound.
+    prefill shapes ((1,S,4096) bf16, S in 1, 129, 1024, 1984, 2048), at
+    off-path cases (f32, B=2, L=1000, lam in another dtype), at lengths on
+    either side of its chunk of 32 steps (B=2) and with extreme decays (a
+    about e^-48 and a = 1); timed at S=2048 beside its plain version and
+    its HBM bound, with the CUDA launches of one call (from the profiler)
+    and its scratch bytes.
 (e) flash attention at recurrentgemma-9b's local attention (q (1,S,16,256),
     k and v (1,S,1,256), bf16, causal, window 2048, S in 1, 129, 1984,
     2048, and S=3000 past the window), checked, timed and reported as in
     (c).
 (f) the WKV-6 kernel against its plain version, output and final state, at
     rwkv6-3b's prefill shapes ((1,S,40,64), bf16 r, k, v with f32 w and u,
-    S in 1, 129, 2048) and at off-path cases (f32, w in bf16, f16, B=2 at
-    hd 32, hd 128); timed at S=2048 beside its plain version and its bound.
+    S in 1, 129, 2048), at off-path cases (f32, w in bf16, f16, B=2 at
+    hd 32, hd 128), at lengths on either side of its chunk of 4096/hd
+    steps (B=2, hd 32, 64 and 128, f32 and w in bf16) and with extreme
+    decays (w = 0, 1e-40 and 1); timed at S=2048 beside its plain version
+    and its bound, with the CUDA launches of one call and its scratch
+    bytes.
 (g) training: reduced tinyllama on the card against the same run on the
     CPU; then the training path -- ``repro_torch.launch.train.main`` on full
     tinyllama-1.1b (22 layers, d_model 2048, bf16 weights, f32 AdamW
@@ -58,8 +65,8 @@ Phases, each of which stops the run with a nonzero exit on failure:
     against the same requests served on the CPU (equal greedy tokens); full
     ``prefill`` with the kernel against ``prefill`` without it, and both
     against f32 weights, at 129 and 2048 tokens (largest logit and cache
-    differences under stated tolerances); the 2048-token prefill timed; a
-    decode step traced.
+    differences under stated tolerances); the 2048-token prefill timed and
+    traced; a decode step traced.
 (k) serving tinyllama-1.1b: ``ServeEngine`` (bf16 weights and KV cache, 8
     slots, cache 4096), 35 requests submitted at once (32 of
     ``Workload(n_requests=32, prompt_lens=(16, 2048), new_tokens=(32,
@@ -71,7 +78,8 @@ Phases, each of which stops the run with a nonzero exit on failure:
     card against the CPU; full ``prefill`` with both kernels against
     ``prefill`` without them and both against f32 weights, at 129 and 1984
     tokens (logits, k/v caches and RG-LRU states under stated tolerances);
-    the 1984-token prefill timed; a decode step traced.  Full-size weights
+    the 1984-token prefill timed and traced (device busy time, time in the
+    RG-LRU and flash launches); a decode step traced.  Full-size weights
     are drawn on the card.
 (m) serving recurrentgemma-9b (38 layers, d_model 4096, bf16 weights and
     cache, 8 slots, cache 2048 = the attention window): 20 requests
@@ -84,8 +92,9 @@ Phases, each of which stops the run with a nonzero exit on failure:
     against the CPU; full ``prefill`` with the WKV-6 kernel against
     ``prefill`` without it and both against f32 weights, at 129 and 2048
     tokens (logits and the recurrent state: the WKV state and both token
-    shifts' last inputs); the 2048-token prefill timed; a decode step
-    traced.  Full-size weights are drawn on the card.
+    shifts' last inputs); the 2048-token prefill timed and traced (device
+    busy time, time in the WKV-6 launches); a decode step traced.
+    Full-size weights are drawn on the card.
 (o) serving rwkv6-3b (32 layers, d_model 2560, 40 heads at hd 64, bf16
     weights, 8 slots, cache 4096): the traffic of (k), greedy.  The WKV-6
     kernel runs once per layer per prefill (32 x 35).
@@ -163,6 +172,10 @@ RGLRU_OPS_PER_ELEM = 11
 # multiply-add to read the state out and a multiply and a multiply-add to
 # update it (the bonus term factors into one dot product per step).
 WKV_OPS_PER_ENTRY = 5
+# The kernels' chunk lengths (csrc/rglru.cu kChunk; csrc/wkv6.cu
+# kChunkElems / hd), for the checks at the chunks' edges.
+RGLRU_CHUNK = 32
+WKV_CHUNK_ELEMS = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,6 +289,37 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_launches(fn) -> list:
+    """The CUDA kernels that one call of ``fn`` launches, in order, as
+    (name, device microseconds from its start to its end), from
+    ``torch.profiler``'s device activity (copies and fills left out).  A
+    programmatic dependent launch starts before the one ahead of it ends,
+    so its span includes its wait."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))),
+                  key=lambda e: e.time_range.start)
+    out = []
+    for e in kern:
+        m = re.search(r"::(\w+)[<(]", e.name)
+        out.append((m.group(1) if m else e.name[:40],
+                    e.time_range.elapsed_us()))
+    return out
+
+
+def launch_line(launches: list) -> str:
+    return (f"cuda_launches_per_call={len(launches)} (" + ", ".join(
+        f"{name} {us:.2f} us" for name, us in launches) + ")")
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -616,11 +660,19 @@ def phase_rglru(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     L = get_config(RG_ARCH).recurrent.lru_width
 
-    def inputs(B, S, L, dt, lam_dt=None):
-        return (torch.randn(B, S, L, generator=gen, device=dev).to(dt),
-                torch.rand(B, S, L, generator=gen, device=dev).to(dt),
-                torch.rand(B, S, L, generator=gen, device=dev).to(dt),
-                torch.linspace(2.0, 6.0, L, device=dev).to(lam_dt or dt))
+    def inputs(B, S, L, dt, lam_dt=None, extreme=False):
+        # with ``extreme``: r = 1 (a = exp(-8 softplus(lam)), about e^-48
+        # at lam = 6) and r = 0 (a = 1) at scattered entries, lam = 6 on
+        # every other channel
+        x = torch.randn(B, S, L, generator=gen, device=dev)
+        r = torch.rand(B, S, L, generator=gen, device=dev)
+        i = torch.rand(B, S, L, generator=gen, device=dev)
+        lam = torch.linspace(2.0, 6.0, L, device=dev)
+        if extreme:
+            pick = torch.randint(0, 4, r.shape, generator=gen, device=dev)
+            r = r.masked_fill(pick == 0, 1.0).masked_fill(pick == 1, 0.0)
+            lam[1::2] = 6.0
+        return x.to(dt), r.to(dt), i.to(dt), lam.to(lam_dt or dt)
 
     def check(what, args) -> float:
         got = K.rglru_scan(*args)
@@ -647,8 +699,26 @@ def phase_rglru(dev) -> dict:
         err = check(what, inputs(B, S, Lw, dt, lam_dt))
         print(f"kernel rglru_scan {what} ({B},{S},{Lw}) {dt}: max_abs_err="
               f"{err:.3e} within tolerance")
+    # either side of the kernel's chunk, and decays at their extremes
+    C = RGLRU_CHUNK
+    for what, B, S, Lw, dt, lam_dt, extreme in (
+            *((f"S=C{d:+d}", 2, C + d, L, torch.bfloat16, None, False)
+              for d in (-1, 0, 1)),
+            ("S=2C+1", 2, 2 * C + 1, L, torch.float32, None, False),
+            ("extreme decays", 2, 2 * C + 1, 1000, torch.float32, None,
+             True),
+            ("extreme decays", 2, 2 * C + 1, 1000, torch.bfloat16,
+             torch.float32, True),
+            ("extreme decays", 1, max(RG_SEQS), L, torch.bfloat16, None,
+             True)):
+        args = inputs(B, S, Lw, dt, lam_dt, extreme)
+        err = check(f"{what} {dt}", args)
+        print(f"kernel rglru_scan {what} ({B},{S},{Lw}) {dt}, lam "
+              f"{args[3].dtype}: max_abs_err={err:.3e} within tolerance")
     args = inputs(1, max(RG_SEQS), L, torch.bfloat16)
     ms = time_ms(lambda: K.rglru_scan(*args))
+    launches = cuda_launches(lambda: K.rglru_scan(*args))
+    scratch = K.rglru_scan_scratch_bytes(*args[0].shape)
     plain = time_ms(lambda: R.rglru_ref(*args), reps=5)
     n = args[0].numel()
     nbytes = 4 * n * args[0].element_size() + L * args[3].element_size()
@@ -659,7 +729,8 @@ def phase_rglru(dev) -> dict:
     print(f"kernel rglru_scan bf16 (1,{max(RG_SEQS)},{L}): ms={ms:.4f} "
           f"plain_ms={plain:.4f} "
           f"bound_ms={bound:.5f} ({by}, {nbytes / 1e6:.1f} MB) "
-          f"library_ms=none")
+          f"library_ms=none; {launch_line(launches)} "
+          f"scratch_bytes={scratch}")
     return {"ms": ms, "plain_ms": plain, "library_ms": None,
             "bound_ms": bound, "bound_by": by,
             "max_abs_err": max(errs.values())}
@@ -673,15 +744,20 @@ def phase_wkv6(dev) -> dict:
     cfg = get_config(RWKV_ARCH)
     H, hd = cfg.n_heads, cfg.hd
 
-    def inputs(B, S, H, hd, dt, w_dt=torch.float32):
+    def inputs(B, S, H, hd, dt, w_dt=torch.float32, extreme=False):
         # decays exp(-exp(-2 + noise)) near 0.87, as the model's w0 = -2
-        # gives them
+        # gives them; with ``extreme``, also w = 0, 1e-40 (denormal in
+        # f32) and 1 at scattered (step, key) entries
         r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
                    for _ in range(3))
         w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
-            B, S, H, hd, generator=gen, device=dev))).to(w_dt)
+            B, S, H, hd, generator=gen, device=dev)))
+        if extreme:
+            pick = torch.randint(0, 8, w.shape, generator=gen, device=dev)
+            w = (w.masked_fill(pick == 0, 0.0).masked_fill(pick == 1, 1e-40)
+                 .masked_fill(pick == 2, 1.0))
         u = 0.1 * torch.randn(H, hd, generator=gen, device=dev)
-        return r, k, v, w, u
+        return r, k, v, w.to(w_dt), u
 
     def check(what, args) -> float:
         out, final = K.rwkv6_wkv(*args)
@@ -712,8 +788,26 @@ def phase_wkv6(dev) -> dict:
             ("B=2 hd 32", 2, 300, 4, 32, torch.bfloat16, torch.float32),
             ("hd 128", 1, 200, 2, 128, torch.float32, torch.float32)):
         check(what, inputs(B, S, Hh, d, dt, w_dt))
+    # either side of the kernel's chunk of 4096/hd steps, and decays at
+    # their extremes
+    for d in (32, 64, 128):
+        C = WKV_CHUNK_ELEMS // d
+        Hh = H if d == hd else 4
+        for S in (C - 1, C, C + 1, 2 * C + 1):
+            check(f"S={S} (C={C}) f32", inputs(2, S, Hh, d, torch.float32))
+        check(f"S={2 * C + 1} (C={C}) w in bf16",
+              inputs(2, 2 * C + 1, Hh, d, torch.bfloat16, torch.bfloat16))
+        for dt, w_dt in ((torch.float32, torch.float32),
+                         (torch.bfloat16, torch.float32),
+                         (torch.bfloat16, torch.bfloat16)):
+            check(f"extreme decays S={2 * C + 1} (C={C}) {dt}",
+                  inputs(2, 2 * C + 1, Hh, d, dt, w_dt, extreme=True))
+    check("extreme decays bf16 S=2048", inputs(
+        1, max(WKV_SEQS), H, hd, torch.bfloat16, extreme=True))
     args = inputs(1, max(WKV_SEQS), H, hd, torch.bfloat16)
     ms = time_ms(lambda: K.rwkv6_wkv(*args))
+    launches = cuda_launches(lambda: K.rwkv6_wkv(*args))
+    scratch = K.rwkv6_wkv_scratch_bytes(*args[0].shape)
     plain = time_ms(lambda: R.rwkv6_ref(*args), reps=3, warmup=1)
     r, k, v, w, u = args
     n = r.numel()
@@ -727,7 +821,8 @@ def phase_wkv6(dev) -> dict:
           f"plain_ms={plain:.4f} bound_ms={bound:.5f} ({by}; "
           f"{nbytes / 1e6:.1f} MB in {t_bytes * 1e3:.5f} ms, "
           f"{WKV_OPS_PER_ENTRY * n * hd / 1e9:.2f} GFLOP in "
-          f"{t_ops * 1e3:.5f} ms) library_ms=none")
+          f"{t_ops * 1e3:.5f} ms) library_ms=none; "
+          f"{launch_line(launches)} scratch_bytes={scratch}")
     return {"ms": ms, "plain_ms": plain, "library_ms": None,
             "bound_ms": bound, "bound_by": by, "max_abs_err": max(errs)}
 
@@ -1099,7 +1194,48 @@ def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
         print(f"prefill {cell.arch} {toks.shape[1]} tokens, use_kernels="
               f"{use_kernels}: {statistics.median(times) * 1e3:.1f} ms "
               f"(median of 3, host clock, synced)")
+    phase_prefill_trace(params, cfg, toks, cell.cache_len)
     phase_decode_trace(dev, params, cfg, cell.cache_len)
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) spans, in their unit."""
+    busy, reach = 0.0, -math.inf
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return busy
+
+
+def phase_prefill_trace(params, cfg, toks, cache_len: int) -> None:
+    """Where one prefill through the kernels spends the device's time, from
+    ``torch.profiler`` (printed only): the device's busy time (the union of
+    its activities) and the union of each kernel family's launches, so a
+    launch that starts early and waits counts once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            ST.prefill(params, cfg, toks, cache_len, use_kernels=True)
+        torch.cuda.synchronize()
+    kern = [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        print(f"prefill {cfg.name} trace: the profiler recorded no device "
+              f"time")
+        return
+    wall = max(b for _, _, b in kern) - min(a for _, a, _ in kern)
+    parts = []
+    for fam in ("wkv6", "rglru", "flash"):
+        spans = [(a, b) for n, a, b in kern if fam in n]
+        if spans:
+            parts.append(f"{fam} {_union_us(spans) / 1e3:.2f} ms "
+                         f"({len(spans)} launches)")
+    print(f"prefill {cfg.name} {toks.shape[1]} tokens traced: device busy "
+          f"{_union_us((a, b) for _, a, b in kern) / 1e3:.2f} ms of "
+          f"{wall / 1e3:.2f} ms (first to last device activity); "
+          + "; ".join(parts))
 
 
 def phase_decode_trace(dev, params, cfg, cache_len: int,
@@ -1141,10 +1277,7 @@ def phase_decode_trace(dev, params, cfg, cache_len: int,
     dev_rows = sorted(((t, n, k) for k, (t, n) in by_name.items()),
                       reverse=True)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, reach = 0.0, -math.inf
-    for a, b in spans:
-        busy += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
+    busy = _union_us(spans)
     wall = spans[-1][1] - spans[0][0] if spans else 0.0
     idle = f"{100 * (1 - busy / wall):.1f}%" if wall else "not measured"
     print(f"decode step {cfg.name}, {SLOTS} slots: {host_ms:.2f} ms per "

@@ -48,10 +48,15 @@ _SIGNATURES = {
     "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P],
     "repro_flash_attention_tc_smem": [_I],
-    "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL,
+                         _P],
+    "repro_rglru_scan_scratch": [_I, _I, _I],
     "repro_rwkv6_wkv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P],
+                        _P, _LL, _P],
+    "repro_rwkv6_wkv_scratch": [_I, _I, _I, _I],
 }
+# entry points that return a size in bytes; every other returns an int
+_LL_RESULT = ("repro_rglru_scan_scratch", "repro_rwkv6_wkv_scratch")
 
 
 def _nvcc() -> str:
@@ -129,7 +134,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _LL if name in _LL_RESULT else ctypes.c_int
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -410,7 +410,13 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
     + g_t from zero, as :func:`.ref.rglru_ref`.  x, r_gate and i_gate share
     one dtype (f32, bf16 or f16) and shape; lam is (L,) in any of those
     dtypes; any S and L.  The output is in x's dtype.  Forward only: on the
-    card it raises when autograd would need its gradient."""
+    card it raises when autograd would need its gradient.
+
+    On the card the scan is chunked in time (``csrc/rglru.cu``): chunk
+    aggregates, a carry over the chunks and each chunk rerun from its
+    start state, in up to three CUDA launches counted here as one call;
+    the aggregates go to scratch allocated here
+    (:func:`rglru_scan_scratch_bytes`)."""
     from .build import load_library
 
     if x.dim() != 3:
@@ -437,11 +443,13 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = load_library()
+    scratch = torch.empty(rglru_scan_scratch_bytes(B, S, L),
+                          dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.repro_rglru_scan(
             x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
             lam.data_ptr(), out.data_ptr(), _CODES[x.dtype],
-            _CODES[lam.dtype], B, S, L,
+            _CODES[lam.dtype], B, S, L, scratch.data_ptr(), scratch.numel(),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(lib, rc, "rglru_scan")
     rglru_scan.launches += 1
@@ -449,6 +457,19 @@ def rglru_scan(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_scratch_bytes(B: int, S: int, L: int) -> int:
+    """Bytes of device scratch one call of the RG-LRU kernel at (B, S, L)
+    takes: two f32 per (batch, chunk but the last, channel); 0 when S fits
+    one chunk.  Asks the built library, which owns the chunk length."""
+    from .build import load_library
+
+    n = load_library().repro_rglru_scan_scratch(B, S, L)
+    if n < 0:
+        raise ValueError(f"rglru_scan: the kernel does not take ({B}, {S}, "
+                         f"{L})")
+    return n
 
 
 # ------------------------------------------------------------------- WKV-6
@@ -464,7 +485,13 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded); u is (H, hd) f32; hd in :data:`WKV_HEAD_DIMS`; any S.
     Returns ``(out, final)``: out in r's dtype and the final state
     (B,H,hd,hd) f32, indexed [b, h, key, value].  Forward only: on the
-    card it raises when autograd would need its gradient."""
+    card it raises when autograd would need its gradient.
+
+    On the card the recurrence is chunked in time (``csrc/wkv6.cu``): each
+    chunk's state from zero, a carry over the chunks and each chunk rerun
+    from its start state, in up to three CUDA launches counted here as one
+    call; the chunk states go to scratch allocated here
+    (:func:`rwkv6_wkv_scratch_bytes`)."""
     from .build import load_library
 
     if any(t.dim() != 4 for t in (r, k, v, w)):
@@ -499,18 +526,34 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out, final.zero_()
     lib = load_library()
+    scratch = torch.empty(rwkv6_wkv_scratch_bytes(B, S, H, hd),
+                          dtype=torch.uint8, device=r.device)
     with torch.cuda.device(r.device):
         rc = lib.repro_rwkv6_wkv(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), out.data_ptr(), final.data_ptr(), _CODES[r.dtype],
-            _CODES[w.dtype], B, S, H, hd,
-            torch.cuda.current_stream(r.device).cuda_stream)
+            _CODES[w.dtype], B, S, H, hd, scratch.data_ptr(),
+            scratch.numel(), torch.cuda.current_stream(r.device).cuda_stream)
     _raise_on_error(lib, rc, "rwkv6_wkv")
     rwkv6_wkv.launches += 1
     return out, final
 
 
 rwkv6_wkv.launches = 0
+
+
+def rwkv6_wkv_scratch_bytes(B: int, S: int, H: int, hd: int) -> int:
+    """Bytes of device scratch one call of the WKV-6 kernel at (B, S, H,
+    hd) takes: an (hd, hd) state and an hd decay in f32 per (batch, head,
+    chunk but the last); 0 when S fits one chunk.  Asks the built library,
+    which owns the chunk length."""
+    from .build import load_library
+
+    n = load_library().repro_rwkv6_wkv_scratch(B, S, H, hd)
+    if n < 0:
+        raise ValueError(f"rwkv6_wkv: the kernel does not take ({B}, {S}, "
+                         f"{H}, {hd})")
+    return n
 
 
 def reset_launches() -> None:

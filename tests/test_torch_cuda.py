@@ -3,7 +3,9 @@ versions: the gradient-sync kernels bitwise, flash attention at the
 tolerances of ``tests/test_kernels.py`` and, against the plain version on
 f32 copies of its inputs, to about one bf16 ulp; the RG-LRU scan and the
 WKV-6 recurrence (its output and its final state) at the tolerances of
-``tests/test_kernels.py``; the bucket pack bitwise.  Marked ``cuda``: they skip on a
+``tests/test_kernels.py``, both also at lengths on either side of their
+chunks and with extreme decays (w = 0, denormal and 1; a near 0 and a =
+1); the bucket pack bitwise.  Marked ``cuda``: they skip on a
 machine without a CUDA device and run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -236,12 +238,23 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
 
 
 # ------------------------------------------------------------------ RG-LRU
-def _lru_case(dev, B, S, L, dt, lam_dt=None):
+LRU_CHUNK = 32   # csrc/rglru.cu: kChunk steps per chunk
+
+
+def _lru_case(dev, B, S, L, dt, lam_dt=None, extreme=False):
+    """Gates in (0, 1) and lam in [2, 6]; with ``extreme``, r = 1 (a =
+    exp(-8 softplus(lam)), about e^-48 where lam = 6) and r = 0 (a = 1)
+    at scattered entries and lam = 6 on every other channel."""
     gen = torch.Generator(device=dev).manual_seed(B * 1000 + S + L)
     x = torch.randn(B, S, L, generator=gen, device=dev).to(dt)
     r = torch.rand(B, S, L, generator=gen, device=dev).to(dt)
     i = torch.rand(B, S, L, generator=gen, device=dev).to(dt)
-    lam = torch.linspace(2.0, 6.0, L, device=dev).to(lam_dt or dt)
+    lam = torch.linspace(2.0, 6.0, L, device=dev)
+    if extreme:
+        pick = torch.randint(0, 4, r.shape, generator=gen, device=dev)
+        r = r.masked_fill(pick == 0, 1.0).masked_fill(pick == 1, 0.0)
+        lam[1::2] = 6.0
+    lam = lam.to(lam_dt or dt)
     before = K.rglru_scan.launches
     got = K.rglru_scan(x, r, i, lam)
     torch.cuda.synchronize()
@@ -268,6 +281,39 @@ def test_rglru_scan_batches_and_widths(dev, B, S, L, dt):
     """Batches and widths, with lam in x's dtype and in f32."""
     _lru_case(dev, B, S, L, dt)
     _lru_case(dev, B, S, L, dt, lam_dt=torch.float32)
+
+
+@pytest.mark.parametrize("S", [LRU_CHUNK - 1, LRU_CHUNK, LRU_CHUNK + 1,
+                               2 * LRU_CHUNK + 1, 300])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rglru_scan_chunk_edges(dev, S, dt):
+    """Lengths on either side of the kernel's chunk, B=2."""
+    _lru_case(dev, 2, S, 4096, dt)
+
+
+@pytest.mark.parametrize("S", [2 * LRU_CHUNK + 1, 2048])
+@pytest.mark.parametrize("dt,lam_dt", [(torch.float32, None),
+                                       (torch.bfloat16, None),
+                                       (torch.bfloat16, torch.float32)])
+def test_rglru_scan_extreme_decays(dev, S, dt, lam_dt):
+    """a about e^-48 (a near reset) and a = 1 inside and across chunks."""
+    _lru_case(dev, 2, S, 1000, dt, lam_dt, extreme=True)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [999, 4096])
+def test_rglru_scan_one_channel_a_thread(dev, dt, L):
+    """Inputs one element off an aligned base, or an odd width, take the
+    kernel's path of one channel a thread; the result is the same."""
+    B, S = 2, 70
+    gen = torch.Generator(device=dev).manual_seed(L)
+    x, r, i = (torch.rand(B * S * L + 1, generator=gen, device=dev).to(dt)
+               [1:].view(B, S, L) for _ in range(3))
+    lam = torch.linspace(2.0, 6.0, L, device=dev).to(dt)
+    got = K.rglru_scan(x, r, i, lam)
+    want = R.rglru_ref(x, r, i, lam)
+    t = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=t, atol=t)
 
 
 def test_rglru_scan_refuses_what_it_does_not_take(dev):
@@ -308,14 +354,24 @@ def test_bucket_pack_unaligned_leaves(dev):
 
 
 # -------------------------------------------------------------------- WKV-6
-def _wkv_case(dev, B, S, H, hd, dt, w_dt=torch.float32, seed=0):
+WKV_CHUNK = {32: 128, 64: 64, 128: 32}   # csrc/wkv6.cu: 4096 / hd steps
+
+
+def _wkv_case(dev, B, S, H, hd, dt, w_dt=torch.float32, seed=0,
+              extreme=False):
     """Model-like inputs: decays exp(-exp(-2 + noise)) near 0.87, as the
-    time mix's w0 = -2 gives them."""
+    time mix's w0 = -2 gives them; with ``extreme``, also w = 0, 1e-40
+    (denormal in f32) and 1 at scattered (step, key) entries."""
     gen = torch.Generator(device=dev).manual_seed(seed + S + hd)
     r, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
                for _ in range(3))
     w = torch.exp(-torch.exp(-2.0 + 0.5 * torch.randn(
-        B, S, H, hd, generator=gen, device=dev))).to(w_dt)
+        B, S, H, hd, generator=gen, device=dev)))
+    if extreme:
+        pick = torch.randint(0, 8, w.shape, generator=gen, device=dev)
+        w = (w.masked_fill(pick == 0, 0.0).masked_fill(pick == 1, 1e-40)
+             .masked_fill(pick == 2, 1.0))
+    w = w.to(w_dt)
     u = 0.1 * torch.randn(H, hd, generator=gen, device=dev)
     before = K.rwkv6_wkv.launches
     out, final = K.rwkv6_wkv(r, k, v, w, u)
@@ -346,6 +402,28 @@ def test_rwkv6_wkv_serving_shapes(dev, dt, w_dt, S):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_rwkv6_wkv_batches_and_head_dims(dev, B, S, H, hd, dt):
     _wkv_case(dev, B, S, H, hd, dt)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("edge", [-1, 0, 1, "2C+1"])
+@pytest.mark.parametrize("dt,w_dt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_rwkv6_wkv_chunk_edges(dev, hd, edge, dt, w_dt):
+    """Lengths on either side of the kernel's chunk (C = 4096/hd steps) and
+    2C + 1, B=2, f32 and w in bf16."""
+    C = WKV_CHUNK[hd]
+    S = 2 * C + 1 if edge == "2C+1" else C + edge
+    _wkv_case(dev, 2, S, 3, hd, dt, w_dt)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dt,w_dt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_rwkv6_wkv_extreme_decays(dev, hd, dt, w_dt):
+    """w = 0 (a hard reset), 1e-40 and 1 inside and across chunks."""
+    _wkv_case(dev, 2, 2 * WKV_CHUNK[hd] + 1, 3, hd, dt, w_dt, extreme=True)
+    _wkv_case(dev, 1, 300, 2, hd, dt, w_dt, extreme=True)
 
 
 def test_rwkv6_wkv_refuses_what_it_does_not_take(dev):

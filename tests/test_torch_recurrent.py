@@ -166,6 +166,80 @@ def test_associative_scan_matches_sequential_oracle():
                                _np(JR.rglru_ref(*js)), **tol("f32"))
 
 
+# ------------------------------------------------- the kernel's algorithm
+LRU_CHUNK = 32   # csrc/rglru.cu: kChunk steps per chunk
+
+
+def _rglru_chunked_emulation(x, r_gate, i_gate, lam):
+    """The chunked RG-LRU scan of ``csrc/rglru.cu`` step by step in plain
+    PyTorch: the gate math in f32 as the kernel fuses it (``-8
+    softplus(lam)`` in lam's dtype), time cut into chunks of 32 steps;
+    1. each chunk but the last from h = 0: its end state H_c and its decay
+       A_c = prod a, a product with no log and no division;
+    2. the carry h_{c+1} = A_c h_c + H_c from h_0 = 0;
+    3. each chunk rerun from h_c, writing h in x's dtype."""
+    B, S, L = x.shape
+    coef = (-8.0 * torch.nn.functional.softplus(lam)).float()
+    la = coef[None, None, :] * r_gate.float()
+    a = torch.exp(la)
+    g = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * la), min=1e-12)) * (
+        i_gate.float() * x.float())
+    n = -(-S // LRU_CHUNK)
+    starts = [torch.zeros(B, L)]
+    for c in range(n - 1):                                    # launches 1, 2
+        h, decay = torch.zeros(B, L), torch.ones(B, L)
+        for t in range(c * LRU_CHUNK, (c + 1) * LRU_CHUNK):
+            h = a[:, t] * h + g[:, t]
+            decay = decay * a[:, t]
+        starts.append(decay * starts[-1] + h)
+    out = torch.empty(B, S, L)
+    for c in range(n):                                        # launch 3
+        h = starts[c]
+        for t in range(c * LRU_CHUNK, min(S, (c + 1) * LRU_CHUNK)):
+            h = a[:, t] * h + g[:, t]
+            out[:, t] = h
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("S", [1, LRU_CHUNK - 1, LRU_CHUNK, LRU_CHUNK + 1,
+                               2 * LRU_CHUNK + 1, 300])
+def test_rglru_chunked_emulation_matches_references(dt, S):
+    """The kernel's chunked algorithm at lengths on either side of its
+    chunk, B=2, against the plain version and the JAX oracle."""
+    js, ts = _lru_inputs(2, S, 24, dt, seed=S + 5)
+    got = _np(_rglru_chunked_emulation(*ts))
+    np.testing.assert_allclose(got, _np(R.rglru_ref(*ts)), **tol(dt))
+    np.testing.assert_allclose(got, _np(JR.rglru_ref(*js)), **tol(dt))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rglru_chunked_emulation_extreme_decays(dt):
+    """r = 1 at lam = 6 gives a = exp(-8 softplus(6)), about e^-48, a near
+    reset; r = 0 gives a = 1 (and g = 1e-6 i x), no decay at all; both
+    scattered inside and across chunks, with lam in f32 against x in
+    ``dt``."""
+    js, ts = _lru_inputs(2, 2 * LRU_CHUNK + 1, 24, dt, seed=9)
+    r = np.asarray(js[1], np.float32).copy()
+    pick = np.random.default_rng(1).integers(0, 4, size=r.shape)
+    r[pick == 0] = 1.0
+    r[pick == 1] = 0.0
+    lam = np.full(24, 6.0)
+    lam[::2] = np.linspace(2.0, 6.0, 12)
+    jr = jnp.asarray(r, DTYPES[dt][0])
+    jlam = jnp.asarray(lam, jnp.float32)
+    x, i = ts[0], ts[2]
+    rt, lamt = _to_torch(jr), _to_torch(jlam)
+    assert float(torch.exp(-8 * torch.nn.functional.softplus(lamt[1]))) < \
+        np.exp(-48)
+    got = _rglru_chunked_emulation(x, rt, i, lamt)
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(_np(got), _np(R.rglru_ref(x, rt, i, lamt)),
+                               **tol(dt))
+    np.testing.assert_allclose(_np(got), _np(JR.rglru_ref(js[0], jr, js[2],
+                                                          jlam)), **tol(dt))
+
+
 # ------------------------------------------------------------------- block
 @functools.lru_cache(maxsize=None)
 def _block():

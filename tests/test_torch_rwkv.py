@@ -148,6 +148,138 @@ def test_wkv6_refuses_what_the_kernel_does_not_take():
         K.rwkv6_wkv(r, k, v, w, u.bfloat16())
 
 
+# ------------------------------------------------- the kernel's algorithm
+def _wkv_chunk(hd):
+    # csrc/wkv6.cu: chunks of kChunkElems / hd = 4096 / hd steps
+    return 4096 // hd
+
+
+def _wkv6_chunked_emulation(r, k, v, w, u):
+    """The chunked WKV-6 of ``csrc/wkv6.cu`` step by step in plain PyTorch,
+    in f32.  Time is cut into chunks of C = 4096/hd steps.
+    1. Each chunk but the last, from a zero state: k decayed to the chunk's
+       end, K_t[i] = k_t[i] prod_{t < tau in chunk} w_tau[i], as products
+       over segments of 16 steps (256/hd per key) times the later
+       segments' products, and the chunk's state L_c = K^T V and decay
+       D_c = prod w; no log, no division.
+    2. The carry S_{c+1} = D_c S_c + L_c from S_0 = 0.
+    3. Each chunk rerun step by step from S_c: out_t = r_t^T S + (sum_i
+       r_t[i] u[i] k_t[i]) v_t, then S <- w_t S + k_t v_t^T; the last
+       chunk's S is the final state.
+    Returns ``(out, final)`` as :func:`repro_torch.kernels.ref.rwkv6_ref`."""
+    B, S, H, hd = r.shape
+    C, seg = _wkv_chunk(hd), 16
+    rf, kf, vf, wf = (t.float().permute(0, 2, 1, 3) for t in (r, k, v, w))
+    uf = u.float()[None]                                      # (1,H,hd)
+    n = -(-S // C)
+    starts = [torch.zeros(B, H, hd, hd)]
+    for c in range(n - 1):                                    # launches 1, 2
+        ks, ws, vs = (t[:, :, c * C:(c + 1) * C] for t in (kf, wf, vf))
+        kd = torch.empty_like(ks)
+        segs = []
+        for s0 in range(0, C, seg):
+            p = torch.ones(B, H, hd)
+            for t in reversed(range(s0, s0 + seg)):
+                kd[:, :, t] = ks[:, :, t] * p
+                p = p * ws[:, :, t]
+            segs.append(p)
+        for g, s0 in enumerate(range(0, C, seg)):
+            later = torch.ones(B, H, hd)
+            for p in segs[g + 1:]:
+                later = later * p
+            kd[:, :, s0:s0 + seg] *= later[:, :, None]
+            if g == 0:
+                decay = later * segs[0]
+        state = torch.einsum("bhti,bhtj->bhij", kd, vs)
+        starts.append(decay[..., None] * starts[-1] + state)
+    out = torch.empty(B, H, S, hd)
+    for c in range(n):                                        # launch 3
+        st = starts[c].clone()
+        for t in range(c * C, min(S, (c + 1) * C)):
+            bonus = (rf[:, :, t] * uf * kf[:, :, t]).sum(-1)
+            out[:, :, t] = (torch.einsum("bhi,bhij->bhj", rf[:, :, t], st)
+                            + bonus[..., None] * vf[:, :, t])
+            st = (wf[:, :, t, :, None] * st
+                  + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    return out.permute(0, 2, 1, 3).to(r.dtype), st
+
+
+def _extreme_decays(js, ts, dt, w_f32=True):
+    """The same inputs with w set to exact 0, 1e-40 (denormal in f32) and
+    exact 1 at scattered (step, key) entries of every head."""
+    w = np.asarray(js[3], np.float32).copy()
+    rng = np.random.default_rng(w.shape[1])
+    pick = rng.integers(0, 8, size=w.shape)
+    w[pick == 0] = 0.0
+    w[pick == 1] = 1e-40
+    w[pick == 2] = 1.0
+    jw = jnp.asarray(w, jnp.float32 if w_f32 else DTYPES[dt][0])
+    js = js[:3] + [jw, js[4]]
+    ts = ts[:3] + [_to_torch(jw), ts[4]]
+    return js, ts
+
+
+def _check_emulation(js, ts, dt):
+    """The emulation, output and final state, against the plain version,
+    the reference's scan and, at lengths it takes, the Pallas kernel in
+    interpret mode."""
+    out, final = _wkv6_chunked_emulation(*ts)
+    want, want_final = R.rwkv6_ref(*ts)
+    np.testing.assert_allclose(_np(out), _np(want), **tol(dt))
+    np.testing.assert_allclose(_np(final), _np(want_final), **tol(dt))
+    jout, jfinal = JRec._wkv6_scan(*js)
+    np.testing.assert_allclose(_np(out), _np(jout), **tol(dt))
+    np.testing.assert_allclose(_np(final), _np(jfinal), **tol(dt))
+    S = ts[0].shape[1]
+    if S <= 128 or S % 128 == 0:
+        np.testing.assert_allclose(_np(out), _np(JK.rwkv6_wkv(*js)),
+                                   **tol(dt))
+
+
+def _chunk_edges(hd):
+    C = _wkv_chunk(hd)
+    return [(hd, S) for S in (1, C - 1, C, C + 1, 2 * C + 1, 300)]
+
+
+@pytest.mark.parametrize("dt,hd,S", [("f32", hd, S) for hd in (32, 64, 128)
+                                     for _, S in _chunk_edges(hd)]
+                         + [("bf16", 64, S) for _, S in _chunk_edges(64)])
+def test_wkv6_chunked_emulation_matches_references(dt, hd, S):
+    """The kernel's chunked algorithm at lengths on either side of its
+    chunk (C = 4096/hd), B=2, w in f32 and in the inputs' dtype."""
+    js, ts = _wkv_inputs(2, S, 2, hd, dt, seed=S * hd, w_f32=S % 2 == 0)
+    _check_emulation(js, ts, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_wkv6_chunked_emulation_extreme_decays(dt, hd):
+    """w = 0 (a hard reset), w = 1e-40 (denormal) and w = 1 (no decay)
+    inside and across chunks, at 2C + 1 steps: every decay stays a product
+    of w, so each is its own limit and nothing turns into NaN."""
+    S = 2 * _wkv_chunk(hd) + 1
+    js, ts = _extreme_decays(*_wkv_inputs(2, S, 2, hd, dt, seed=hd), dt)
+    out, final = _wkv6_chunked_emulation(*ts)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(final).all()
+    _check_emulation(js, ts, dt)
+
+
+def test_wkv6_chunk_state_resets_at_zero_decay():
+    """A chunk whose last step has w = 0 on every key leaves from a zero
+    start exactly its last step's k v^T: the emulation's carry takes the
+    earlier chunks' states to exactly 0."""
+    js, ts = _wkv_inputs(1, 2 * 64, 1, 64, "f32", seed=11)
+    w = ts[3].clone()
+    w[:, 63] = 0.0
+    _, final_a = _wkv6_chunked_emulation(*ts[:3], w, ts[4])
+    r, k, v, _, u = ts
+    _, final_b = _wkv6_chunked_emulation(
+        r[:, 63:], k[:, 63:], v[:, 63:], w[:, 63:], u)
+    # the two runs chunk the remaining steps differently: f32 rounding
+    np.testing.assert_allclose(_np(final_a), _np(final_b), rtol=1e-5,
+                               atol=1e-5)
+
+
 # ------------------------------------------------------------------- block
 @functools.lru_cache(maxsize=None)
 def _block():
