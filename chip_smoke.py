@@ -61,44 +61,55 @@ Phases, each of which stops the run with a nonzero exit on failure:
     unfused bucket per step, the fused kernels once per fused bucket per
     step; and at each of 2 steps of the same model the gradients that
     strategy syncs are bitwise equal to those an all-fused one syncs.
-(j) serving checks, tinyllama-1.1b: the reduced model served on the card
+(j) the search path: ``train.main --strategy auto --cluster h100_superpod``
+    traces full tinyllama-1.1b's step at batch 4 x seq 2048 on meta
+    tensors, searches it priced for an H100, saves the Plan and enacts it
+    on the card for 4 steps.  The counters are zeroed just before and read
+    just after: each sync kernel and collective ran as often as the Plan
+    implies.  Also: finite losses, buckets covering every leaf once, the
+    saved Plan loading back equal (and through ``GradSyncStrategy.load``
+    into the same buckets), trace plus search within 120 s; printed: the
+    prims by category, the Plan, its predicted compute time beside the
+    measured step, and one launch's host cost beside the ``H100_SXM``
+    value.
+(k) serving checks, tinyllama-1.1b: the reduced model served on the card
     against the same requests served on the CPU (equal greedy tokens); full
     ``prefill`` with the kernel against ``prefill`` without it, and both
     against f32 weights, at 129 and 2048 tokens (largest logit and cache
     differences under stated tolerances); the 2048-token prefill timed and
     traced; a decode step traced.
-(k) serving tinyllama-1.1b: ``ServeEngine`` (bf16 weights and KV cache, 8
+(l) serving tinyllama-1.1b: ``ServeEngine`` (bf16 weights and KV cache, 8
     slots, cache 4096), 35 requests submitted at once (32 of
     ``Workload(n_requests=32, prompt_lens=(16, 2048), new_tokens=(32,
     64))`` plus prompts of 1, 129 and 2048 tokens), decoded greedily to
     completion.  The launch counters are zeroed just before and read just
     after: flash attention runs once per layer per prefill, every launch
     on the tensor-core route.
-(l) serving checks, recurrentgemma-9b, as (j): the reduced model on the
+(m) serving checks, recurrentgemma-9b, as (k): the reduced model on the
     card against the CPU; full ``prefill`` with both kernels against
     ``prefill`` without them and both against f32 weights, at 129 and 1984
     tokens (logits, k/v caches and RG-LRU states under stated tolerances);
     the 1984-token prefill timed and traced (device busy time, time in the
     RG-LRU and flash launches); a decode step traced.  Full-size weights
     are drawn on the card.
-(m) serving recurrentgemma-9b (38 layers, d_model 4096, bf16 weights and
+(n) serving recurrentgemma-9b (38 layers, d_model 4096, bf16 weights and
     cache, 8 slots, cache 2048 = the attention window): 20 requests
     submitted at once (16 of ``Workload(n_requests=16, prompt_lens=(16,
     1920), new_tokens=(32, 64))`` plus prompts of 1, 129, 1024 and 1984
     tokens), greedy.  The RG-LRU kernel runs once per RG-LRU layer per
     prefill (26 x 20) and flash attention once per attention layer (12 x
     20), every launch on the tensor-core route.
-(n) serving checks, rwkv6-3b, as (j): the reduced model on the card
+(o) serving checks, rwkv6-3b, as (k): the reduced model on the card
     against the CPU; full ``prefill`` with the WKV-6 kernel against
     ``prefill`` without it and both against f32 weights, at 129 and 2048
     tokens (logits and the recurrent state: the WKV state and both token
     shifts' last inputs); the 2048-token prefill timed and traced (device
     busy time, time in the WKV-6 launches); a decode step traced.
     Full-size weights are drawn on the card.
-(o) serving rwkv6-3b (32 layers, d_model 2560, 40 heads at hd 64, bf16
-    weights, 8 slots, cache 4096): the traffic of (k), greedy.  The WKV-6
+(p) serving rwkv6-3b (32 layers, d_model 2560, 40 heads at hd 64, bf16
+    weights, 8 slots, cache 4096): the traffic of (l), greedy.  The WKV-6
     kernel runs once per layer per prefill (32 x 35).
-(p) a JSON line of every kernel's numbers, then the device line last.
+(q) a JSON line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
@@ -123,8 +134,10 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch import plan as RP  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.hw import H100_SXM  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
@@ -147,6 +160,9 @@ WKV_SEQS = (1, 129, 2048)                 # WKV-6 check lengths
 # the unfused-bucket phase: batch x seq, steps of the launcher's run, steps
 # of the bitwise check, and each bucket's (fused, kind, chunks) in turn
 B1_BATCH, B1_SEQ, B1_STEPS, B1_CHECK_STEPS = 2, 512, 3, 2
+# the search path: the cluster it prices for, and the most seconds its
+# trace and search may take together
+SEARCH_CLUSTER, SEARCH_LIMIT_S = "h100_superpod", 120.0
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -925,6 +941,105 @@ def _mixed_strategy(strat) -> TS.GradSyncStrategy:
                                fused=[p[0] for p in pat])
 
 
+def implied_counts(strat, leaves, steps: int) -> tuple[dict, dict]:
+    """Sync-kernel launches and collective calls that ``steps`` steps of
+    ``strat`` make at dp=1: a bucket pack per unfused bucket; a fused pack
+    and unpack per fused one; a convert-copy per unfused bucket whose
+    leaves are all bf16 (its cast back) and per bf16 gradient after the
+    sync (the optimizer's f32 upcast); per chunk, an all-reduce for an
+    unfused ``ar`` bucket, else a reduce-scatter and an all-gather."""
+    sizes = [p.numel() for p in leaves]
+    n_fused = sum(strat.is_fused(bi) for bi in range(len(strat.buckets)))
+    synced_dt = {}      # each leaf's dtype after the sync
+    cast_back = 0       # all-bf16 unfused buckets, cast back by convert_copy
+    calls = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+    for bi, b in enumerate(strat.buckets):
+        dt = functools.reduce(torch.promote_types,
+                              [leaves[i].dtype for i in b])
+        for i in b:
+            synced_dt[i] = leaves[i].dtype if strat.is_fused(bi) else dt
+        cast_back += (not strat.is_fused(bi)) and dt != torch.float32
+        k = min(strat.chunk_count(bi), sum(sizes[i] for i in b))
+        if strat.comm_kind(bi) == "ar" and not strat.is_fused(bi):
+            calls["all_reduce"] += k * steps
+        else:
+            calls["reduce_scatter"] += k * steps
+            calls["all_gather"] += k * steps
+    launches = {"bucket_pack": (len(strat.buckets) - n_fused) * steps,
+                "fused_pack": n_fused * steps,
+                "fused_unpack": n_fused * steps,
+                "convert_copy": (cast_back + sum(
+                    dt != torch.float32 for dt in synced_dt.values()))
+                * steps}
+    return launches, calls
+
+
+def check_bucket_pack(strat, grads) -> float:
+    """The bucket-pack kernel bitwise against its plain version on every
+    unfused bucket of ``strat``, packing ``grads`` into f32 as the sync
+    does.  Returns the largest absolute error."""
+    err = 0.0
+    for bi, b in enumerate(strat.buckets):
+        if strat.is_fused(bi):
+            continue
+        ls = [grads[i] for i in b]
+        total = sum(l.numel() for l in ls)
+        err = max(err, check_equal(
+            f"bucket_pack bucket {bi} ({len(ls)} leaves, {total} elements)",
+            [K.bucket_pack(ls, total, torch.float32)],
+            [R.bucket_pack_ref(ls, total, torch.float32)]))
+    return err
+
+
+def check_sync(dev, strat, steps: int, batch: int, seq: int) -> None:
+    """``steps`` AdamW steps of full tinyllama-1.1b at ``batch`` x ``seq``
+    whose gradients ``strat`` syncs, each step's synced gradients bitwise
+    against an all-fused sync (2 chunks) of the same gradients: at dp=1
+    both are exact casts, so this holds every pack, cast back and unpack
+    of ``strat`` at the main path's shapes."""
+    nb = len(strat.buckets)
+    fused = TS.GradSyncStrategy(strat.buckets, comms=["ar"] * nb,
+                                chunks=[CHUNKS] * nb, fused=[1] * nb)
+    cfg = get_config(ARCH)
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    plist = ST.leaves(params)
+    opt_init, opt_update = adamw(1e-3, weight_decay=0.01)
+    opt = opt_init(plist)
+    tgen = torch.Generator(device=dev).manual_seed(7)
+    created = TRAIN.init_process_group(dev)
+    try:
+        for step in range(steps):
+            tokens = torch.randint(0, cfg.vocab, (batch, seq),
+                                   generator=tgen, device=dev)
+            for p in plist:
+                p.requires_grad_(True)
+            loss = ST.loss_fn(params, cfg, {"tokens": tokens}, remat=True)
+            grads = torch.autograd.grad(loss, plist)
+            got = TS.sync_grads([g.clone() for g in grads], strat)
+            want_g = TS.sync_grads([g.clone() for g in grads], fused)
+            n_f32 = sum(g.dtype != w.dtype for g, w in zip(got, want_g))
+            check_equal(f"step {step} synced gradients against the "
+                        f"all-fused sync",
+                        [g.float() for g in got],
+                        [w.float() for w in want_g])
+            print(f"step {step}: loss {float(loss.detach()):.4f}; "
+                  f"{len(got)} synced gradients bitwise equal to the "
+                  f"all-fused sync ({n_f32} come back as f32 views of a "
+                  f"mixed bucket)")
+            with torch.no_grad():
+                for p in plist:
+                    p.requires_grad_(False)
+                clipped, _ = clip_by_global_norm(got, 1.0)
+                updates, opt = opt_update(clipped, opt, plist)
+                apply_updates(plist, updates)
+            del grads, got, want_g
+    finally:
+        if created:
+            dist.destroy_process_group()
+    del params, plist, opt
+    torch.cuda.empty_cache()
+
+
 def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
     """The bucket-pack kernel bitwise against its plain version and timed;
     the launcher's run with unfused buckets, its launches counted; each
@@ -935,14 +1050,12 @@ def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
     gen = torch.Generator(device=dev).manual_seed(6)
     grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
              for p in leaves]
-    res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0.0}
+    res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "max_abs_err": check_bucket_pack(mixed, grads)}
     nbytes = 0
     for bi in unfused:
         ls = [grads[i] for i in strat.buckets[bi]]
         total = sum(l.numel() for l in ls)
-        res["max_abs_err"] = max(res["max_abs_err"], check_equal(
-            "bucket_pack", [K.bucket_pack(ls, total)],
-            [R.bucket_pack_ref(ls, total)]))
         res["ms"] += time_ms(lambda: K.bucket_pack(ls, total))
         res["plain_ms"] += time_ms(lambda: R.bucket_pack_ref(ls, total))
         buf = torch.empty(total, dtype=torch.float32, device=dev)
@@ -977,29 +1090,7 @@ def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
     plan = os.path.join(tmp, "mixed.json")
     mixed.save(plan)
     nb = len(strat.buckets)
-    sizes = [p.numel() for p in leaves]
-    synced_dt = {}      # each leaf's dtype after the sync
-    cast_back = 0       # all-bf16 unfused buckets, cast back by convert_copy
-    for bi, b in enumerate(strat.buckets):
-        dt = functools.reduce(torch.promote_types,
-                              [leaves[i].dtype for i in b])
-        for i in b:
-            synced_dt[i] = leaves[i].dtype if mixed.is_fused(bi) else dt
-        cast_back += (not mixed.is_fused(bi)) and dt != torch.float32
-    want = {"bucket_pack": len(unfused) * B1_STEPS,
-            "fused_pack": (nb - len(unfused)) * B1_STEPS,
-            "fused_unpack": (nb - len(unfused)) * B1_STEPS,
-            "convert_copy": (cast_back + sum(
-                dt != torch.float32 for dt in synced_dt.values()))
-            * B1_STEPS}
-    calls = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
-    for bi, b in enumerate(strat.buckets):
-        k = min(mixed.chunk_count(bi), sum(sizes[i] for i in b))
-        if mixed.comm_kind(bi) == "ar" and not mixed.is_fused(bi):
-            calls["all_reduce"] += k * B1_STEPS
-        else:
-            calls["reduce_scatter"] += k * B1_STEPS
-            calls["all_gather"] += k * B1_STEPS
+    want, calls = implied_counts(mixed, leaves, B1_STEPS)
     torch.cuda.empty_cache()
     K.reset_launches()
     TS.reset_collectives()
@@ -1025,46 +1116,105 @@ def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
 
     # each step's synced gradients, this strategy against an all-fused one
     # on the same gradients (at dp=1 both are exact casts)
-    fused = TS.GradSyncStrategy(strat.buckets, comms=["ar"] * nb,
-                                chunks=[CHUNKS] * nb, fused=[1] * nb)
-    cfg = get_config(ARCH)
-    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
-    plist = ST.leaves(params)
-    opt_init, opt_update = adamw(1e-3, weight_decay=0.01)
-    opt = opt_init(plist)
-    tgen = torch.Generator(device=dev).manual_seed(7)
-    created = TRAIN.init_process_group(dev)
-    try:
-        for step in range(B1_CHECK_STEPS):
-            tokens = torch.randint(0, cfg.vocab, (B1_BATCH, B1_SEQ),
-                                   generator=tgen, device=dev)
-            for p in plist:
-                p.requires_grad_(True)
-            loss = ST.loss_fn(params, cfg, {"tokens": tokens}, remat=True)
-            grads = torch.autograd.grad(loss, plist)
-            got = TS.sync_grads([g.clone() for g in grads], mixed)
-            want_g = TS.sync_grads([g.clone() for g in grads], fused)
-            n_f32 = sum(g.dtype != w.dtype for g, w in zip(got, want_g))
-            check_equal(f"step {step} gradients, unfused against fused",
-                        [g.float() for g in got],
-                        [w.float() for w in want_g])
-            print(f"step {step}: loss {float(loss.detach()):.4f}; "
-                  f"{len(got)} synced gradients bitwise equal to the "
-                  f"all-fused sync ({n_f32} come back as f32 views of a "
-                  f"mixed bucket)")
-            with torch.no_grad():
-                for p in plist:
-                    p.requires_grad_(False)
-                clipped, _ = clip_by_global_norm(got, 1.0)
-                updates, opt = opt_update(clipped, opt, plist)
-                apply_updates(plist, updates)
-            del grads, got, want_g
-    finally:
-        if created:
-            dist.destroy_process_group()
-    del params, plist, opt
-    torch.cuda.empty_cache()
+    check_sync(dev, mixed, B1_CHECK_STEPS, B1_BATCH, B1_SEQ)
     return res, launches["bucket_pack"]
+
+
+def launch_host_us(dev, n: int = 2000) -> float:
+    """Host time of one CUDA launch: ``n`` one-element adds queued back to
+    back on the host clock, before the device is waited for."""
+    x = torch.zeros(1, device=dev)
+    for _ in range(50):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return host / n * 1e6
+
+
+def phase_search(dev, tmp: str, leaves) -> float:
+    """The search path: ``train.main --strategy auto`` traces full
+    tinyllama-1.1b on meta tensors, searches it priced for an H100 on
+    ``h100_superpod`` and enacts the searched Plan on the card.  Counters
+    are zeroed just before and read just after; they must equal what the
+    Plan implies.  Then the Plan's unfused buckets are packed by the kernel
+    and its plain version, and one step's sync through the Plan is held
+    bitwise against an all-fused sync.  Returns bucket_pack's largest
+    error."""
+    path = os.path.join(tmp, "searched.json")
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    TS.reset_collectives()
+    out = TRAIN.main(["--arch", ARCH, "--strategy", "auto", "--cluster",
+                      SEARCH_CLUSTER, "--batch", str(BATCH), "--seq",
+                      str(SEQ), "--steps", str(STEPS), "--plan-out", path,
+                      "--log-every", "1", "--device", "cuda"])
+    launches = {name: getattr(K, name).launches
+                for name in ("bucket_pack",) + SYNC_KERNELS}
+    coll = dict(TS.COLLECTIVES)
+    plan, losses = out["plan"], out["losses"]
+    prov = plan.provenance
+    if len(losses) != STEPS or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"search path: losses not finite: {losses}")
+    covered = sorted(i for b in plan.buckets for i in b)
+    if covered != list(range(len(leaves))):
+        raise AssertionError(f"searched buckets {plan.buckets} do not "
+                             f"cover the {len(leaves)} leaves once each")
+    strat = plan.grad_sync(leaves)
+    want, calls = implied_counts(strat, leaves, STEPS)
+    if launches != want or coll != calls:
+        raise AssertionError(f"search path: launches {launches}, "
+                             f"collectives {coll}; the Plan implies "
+                             f"{want}, {calls}")
+    loaded = RP.Plan.load(path)
+    if loaded != plan:
+        raise AssertionError("the saved Plan does not load as it was")
+    read = TS.GradSyncStrategy.load(path, params=leaves)
+    if dataclasses.asdict(read) != dataclasses.asdict(strat):
+        raise AssertionError(f"GradSyncStrategy.load read {read}, the "
+                             f"Plan lowers to {strat}")
+    trace, sim_s = prov["trace"], prov["search_wall_time"]
+    if trace["wall_time"] + sim_s > SEARCH_LIMIT_S:
+        raise AssertionError(f"trace {trace['wall_time']:.1f} s + search "
+                             f"{sim_s:.1f} s exceed {SEARCH_LIMIT_S} s")
+    print(f"search path {ARCH} (batch {BATCH} x seq {SEQ}) on "
+          f"{SEARCH_CLUSTER}: {trace['prims']} prims {trace['by_category']};"
+          f" trace {trace['wall_time']:.2f} s, search {sim_s:.3f} s, "
+          f"{prov['steps']} steps, {prov['simulations']} simulations; "
+          f"simulated {prov['initial_cost'] * 1e3:.3f} -> "
+          f"{prov['best_cost'] * 1e3:.3f} ms")
+    for bi, b in enumerate(strat.buckets):
+        print(f"  bucket {bi}: leaves {b} {strat.comm_kind(bi)} x "
+              f"{strat.chunk_count(bi)} chunks, "
+              f"{'fused' if strat.is_fused(bi) else 'unfused'}")
+    step_s = statistics.median(out["step_seconds"][1:])
+    ct = prov["compute_time"]
+    print(f"predicted dp=1 compute time {ct['best'] * 1e3:.1f} ms (the "
+          f"searched op fusion; {ct['initial'] * 1e3:.1f} ms unfused) "
+          f"against a measured median step of {step_s * 1e3:.1f} ms "
+          f"(steps 2..{STEPS}); the step runs with remat and AdamW, the "
+          f"trace with neither")
+    print(f"one CUDA launch: {launch_host_us(dev):.2f} us of host time "
+          f"measured, H100_SXM.launch_overhead "
+          f"{H100_SXM.launch_overhead * 1e6:.2f} us")
+    print(f"search path: losses {losses}; launches {launches}; collectives "
+          f"{coll}")
+    # the kernels at the Plan's own buckets: bucket_pack on seeded
+    # gradients, then one step's sync against an all-fused sync
+    gen = torch.Generator(device=dev).manual_seed(8)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in leaves]
+    err = check_bucket_pack(strat, grads)
+    del grads
+    n_unfused = sum(not strat.is_fused(bi)
+                    for bi in range(len(strat.buckets)))
+    print(f"bucket_pack bitwise equal to plain on the Plan's {n_unfused} "
+          f"unfused buckets (max abs err {err})")
+    check_sync(dev, strat, 1, BATCH, SEQ)
+    return err
 
 
 def _engine_requests(vocab: int, seed: int, lens, new: int) -> list:
@@ -1390,6 +1540,8 @@ def main() -> int:
         phase_trace(plan)
         res["bucket_pack"], launches["bucket_pack"] = phase_unfused_buckets(
             dev, tmp, strat, leaves)
+        res["bucket_pack"]["max_abs_err"] = max(
+            res["bucket_pack"]["max_abs_err"], phase_search(dev, tmp, leaves))
     torch.cuda.empty_cache()
 
     cfg = get_config(ARCH)

@@ -49,9 +49,6 @@ from ..kernels.ref import chunk_cuts
 from ..models.config import ModelConfig
 from ..optim import adamw, apply_updates, clip_by_global_norm
 
-PLAN_SCHEMA = "repro.plan"
-PLAN_VERSIONS = (1, 2, 3)
-
 COLLECTIVES = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
 
 
@@ -153,27 +150,19 @@ class GradSyncStrategy:
 
     @staticmethod
     def load(path: str, params=None) -> "GradSyncStrategy":
-        """Read a strategy file: a ``repro.plan`` artifact (its
-        tensor-fusion fields only — the rest of a Plan prices the strategy
-        and is not needed to enact it), or a legacy ``strategy.json`` as
-        :meth:`save` writes it.  With ``params``, a Plan's buckets are
-        clipped to the real leaves exactly as the reference's
-        ``Plan.grad_sync(params)`` does, and a legacy file's likewise."""
+        """Read a strategy file: a ``repro.plan`` artifact, through the
+        port's own :class:`repro_torch.plan.Plan` (only its tensor-fusion
+        half is enacted), or a legacy ``strategy.json`` as :meth:`save`
+        writes it.  With ``params``, a Plan's buckets are clipped to the
+        real leaves by ``Plan.grad_sync(params)``, and a legacy file's
+        likewise."""
         with open(path) as f:
             d = json.load(f)
         if not isinstance(d, dict) or "buckets" not in d:
             raise ValueError(f"{path}: not a strategy file or Plan artifact")
         if "schema" in d:
-            if d["schema"] != PLAN_SCHEMA:
-                raise ValueError(f"{path}: schema {d['schema']!r} is not "
-                                 f"{PLAN_SCHEMA!r}")
-            if d.get("version") not in PLAN_VERSIONS:
-                raise ValueError(f"{path}: plan version {d.get('version')!r}"
-                                 f" is not one of {PLAN_VERSIONS}")
-            return GradSyncStrategy.from_buckets(
-                d["buckets"], d["bucket_comm"], d["bucket_chunks"],
-                params=params, barriers=bool(d.get("barriers", False)),
-                fused=d.get("bucket_fused") or None)
+            from ..plan import Plan
+            return Plan.from_dict(d, source=path).grad_sync(params)
         strat = GradSyncStrategy(d["buckets"], d.get("barriers", False),
                                  comms=d.get("comms"), chunks=d.get("chunks"),
                                  fused=d.get("fused"))

@@ -40,6 +40,7 @@ from ..device import resolve_device
 from . import layers as L
 from . import model as M
 from .config import ModelConfig
+from .regions import scan_region
 
 leaves = T.leaves
 
@@ -100,21 +101,26 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return params
 
 
-def _per_layer(groups: list, cfg: ModelConfig) -> list:
-    """Each layer's subtree of stacked ``groups`` (parameters or caches),
-    in layer order: views of the stacked leaves, so an in-place write lands
-    in the stack (each leaf is unbound once, so the backward stacks the
-    per-layer gradients once per leaf)."""
+def _group_layers(tree, g: dict) -> list:
+    """Each layer's subtree of one stacked group ``tree`` (parameters or
+    caches), in layer order: views of the stacked leaves, so an in-place
+    write lands in the stack (each leaf is unbound once, so the backward
+    stacks the per-layer gradients once per leaf)."""
     out = []
-    for g, tree in zip(layer_groups(cfg), groups):
-        per_leaf = [leaf.unbind(0) for leaf in T.leaves(tree)]
-        for c in range(g["count"]):
-            one = T.unflatten(tree, [u[c] for u in per_leaf])
-            if g["kind"] == "plain":
-                out.append(one)
-            else:
-                out += [one[f"b{j}"] for j in range(g["cycle"])]
+    per_leaf = [leaf.unbind(0) for leaf in T.leaves(tree)]
+    for c in range(g["count"]):
+        one = T.unflatten(tree, [u[c] for u in per_leaf])
+        if g["kind"] == "plain":
+            out.append(one)
+        else:
+            out += [one[f"b{j}"] for j in range(g["cycle"])]
     return out
+
+
+def _per_layer(groups: list, cfg: ModelConfig) -> list:
+    """Each layer's subtree of stacked ``groups``, in layer order."""
+    return [one for g, tree in zip(layer_groups(cfg), groups)
+            for one in _group_layers(tree, g)]
 
 
 def _layers(params, cfg: ModelConfig):
@@ -150,11 +156,16 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *,
         return M._layer_fwd(p, cfg, x, positions, use_kernels=use_kernels,
                             li=li)
 
-    for li, p in enumerate(_layers(params, cfg)):
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(block, p, x, li, use_reentrant=False)
-        else:
-            x = block(p, x, li)
+    li = 0
+    for g, tree in zip(layer_groups(cfg), params["groups"]):
+        # the reference scans each group; the tracer collapses the loop
+        with scan_region():
+            for p in _group_layers(tree, g):
+                if remat and torch.is_grad_enabled():
+                    x = checkpoint(block, p, x, li, use_reentrant=False)
+                else:
+                    x = block(p, x, li)
+                li += 1
     return L.norm_fwd(params["final_norm"], cfg, x)
 
 
@@ -196,15 +207,16 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
         chunk -= 1
     ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
     cnt = torch.zeros((), dtype=torch.float32, device=dev)
-    for c in range(S // chunk):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        args = (params, cfg, x[:, sl], targets[:, sl], weights[:, sl])
-        if remat and torch.is_grad_enabled():
-            ce, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
-        else:
-            ce, n = _ce_chunk(*args)
-        ce_sum = ce_sum + ce
-        cnt = cnt + n
+    with scan_region():    # one scan in the reference
+        for c in range(S // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            args = (params, cfg, x[:, sl], targets[:, sl], weights[:, sl])
+            if remat and torch.is_grad_enabled():
+                ce, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+            else:
+                ce, n = _ce_chunk(*args)
+            ce_sum = ce_sum + ce
+            cnt = cnt + n
     return ce_sum / torch.clamp(cnt, min=1.0)
 
 

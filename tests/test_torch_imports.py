@@ -42,3 +42,24 @@ def test_port_imports_without_jax_or_reference():
         env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert int(proc.stdout.split()[-1]) >= 15   # every module was imported
+
+
+_LIGHT = r"""
+import sys
+import repro_torch.distributed.train_step, repro_torch.models.stacked
+import repro_torch.serving.engine
+print(sorted(m for m in sys.modules if m.split(".")[:2] in (
+    ["repro_torch", "core"], ["repro_torch", "plan"],
+    ["repro_torch", "cluster"])))
+"""
+
+
+def test_model_step_and_engine_load_no_search():
+    """The model marks its scans through ``models/regions.py``: importing
+    the model, the train step or the serving engine loads nothing of the
+    tracer, the search or the cluster model."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", _LIGHT], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split("\n")[-2] == "[]", proc.stdout
