@@ -109,15 +109,39 @@ Phases, each of which stops the run with a nonzero exit on failure:
 (p) serving rwkv6-3b (32 layers, d_model 2560, 40 heads at hd 64, bf16
     weights, 8 slots, cache 4096): the traffic of (l), greedy.  The WKV-6
     kernel runs once per layer per prefill (32 x 35).
-(q) a JSON line of every kernel's numbers, then the device line last.
+(q) the estimator: ``calibrate_hw`` fits the card's bf16 matmul peak,
+    read-and-write bandwidth and launch cost (printed beside
+    ``H100_SXM``'s); full tinyllama-1.1b's step, traced at batch 4 x seq
+    2048 on meta tensors, is simulated at dp=1 under the fit and under
+    ``H100_SXM`` beside phase (j)'s measured step (the paper's Table 2);
+    the GNN (the reference's fig11 settings: 2 layers, 4 heads of 16, 250
+    oracle-labelled fused groups of that graph, 40 epochs) is trained on
+    the card, its training loss must halve and its forward on the card
+    equal the CPU's within 1e-5 in log-time; the step is searched on
+    ``h100_superpod`` with the GNN as the cost model and with the oracle,
+    the GNN's Plan is scored by the oracle (the gap in percent), beside
+    every baseline of ``evaluate_baselines``; the GNN's Plan is enacted
+    through ``train.main --strategy-file`` for 4 steps (finite losses,
+    launches and collectives as the Plan implies, the bucket pack bitwise
+    on its unfused buckets, the saved Plan naming ``GNNEstimator``); 192
+    tier B fused ops (up to 10 ops on f32 2048 x 2048) are each compiled
+    by ``torch.compile`` into one graph and timed on the card, and a GNN
+    (the reference's fig9 settings: 3 layers, 60 epochs, batches of 32)
+    trained on 85% of them prints its held-out error percentiles and its
+    share within 14%; a compile into a plan cache, repeated, is a hit
+    that makes no oracle query.  The phase must finish within
+    ``ESTIMATOR_LIMIT_S``.
+(r) a JSON line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
+import copy
 import dataclasses
 import functools
 import json
 import math
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -136,7 +160,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch import plan as RP  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
+from repro_torch.cluster import get_preset  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (OracleEstimator, Simulator,  # noqa: E402
+                              evaluate_baselines, profile_graph)
+from repro_torch.core import gnn as GNN  # noqa: E402
+from repro_torch.core import profile as PROF  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
@@ -163,6 +192,12 @@ B1_BATCH, B1_SEQ, B1_STEPS, B1_CHECK_STEPS = 2, 512, 3, 2
 # the search path: the cluster it prices for, and the most seconds its
 # trace and search may take together
 SEARCH_CLUSTER, SEARCH_LIMIT_S = "h100_superpod", 120.0
+# the estimator phase: tier A fused groups and GNN epochs (the reference's
+# fig11 benchmark), tier B's fused-op count, ops per fused op and width
+# (Fig. 9 --measured), and the most seconds the whole phase may take
+EST_SAMPLES, EST_EPOCHS = 250, 40
+TIER_B_SAMPLES, TIER_B_NODES, TIER_B_DIM = 192, 10, 2048
+ESTIMATOR_LIMIT_S = 600.0
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -1120,22 +1155,7 @@ def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
     return res, launches["bucket_pack"]
 
 
-def launch_host_us(dev, n: int = 2000) -> float:
-    """Host time of one CUDA launch: ``n`` one-element adds queued back to
-    back on the host clock, before the device is waited for."""
-    x = torch.zeros(1, device=dev)
-    for _ in range(50):
-        x.add_(1)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(n):
-        x.add_(1)
-    host = time.perf_counter() - t
-    torch.cuda.synchronize()
-    return host / n * 1e6
-
-
-def phase_search(dev, tmp: str, leaves) -> float:
+def phase_search(dev, tmp: str, leaves) -> tuple[float, float]:
     """The search path: ``train.main --strategy auto`` traces full
     tinyllama-1.1b on meta tensors, searches it priced for an H100 on
     ``h100_superpod`` and enacts the searched Plan on the card.  Counters
@@ -1143,7 +1163,7 @@ def phase_search(dev, tmp: str, leaves) -> float:
     Plan implies.  Then the Plan's unfused buckets are packed by the kernel
     and its plain version, and one step's sync through the Plan is held
     bitwise against an all-fused sync.  Returns bucket_pack's largest
-    error."""
+    error and the median step in seconds."""
     path = os.path.join(tmp, "searched.json")
     torch.cuda.empty_cache()
     K.reset_launches()
@@ -1197,8 +1217,8 @@ def phase_search(dev, tmp: str, leaves) -> float:
           f"against a measured median step of {step_s * 1e3:.1f} ms "
           f"(steps 2..{STEPS}); the step runs with remat and AdamW, the "
           f"trace with neither")
-    print(f"one CUDA launch: {launch_host_us(dev):.2f} us of host time "
-          f"measured, H100_SXM.launch_overhead "
+    print(f"one CUDA launch: {PROF.launch_cost(dev) * 1e6:.2f} us of host "
+          f"time measured, H100_SXM.launch_overhead "
           f"{H100_SXM.launch_overhead * 1e6:.2f} us")
     print(f"search path: losses {losses}; launches {launches}; collectives "
           f"{coll}")
@@ -1214,6 +1234,198 @@ def phase_search(dev, tmp: str, leaves) -> float:
     print(f"bucket_pack bitwise equal to plain on the Plan's {n_unfused} "
           f"unfused buckets (max abs err {err})")
     check_sync(dev, strat, 1, BATCH, SEQ)
+    return err, step_s
+
+
+class _CountingOracle(OracleEstimator):
+    """The oracle estimator, counting its queries: a compile that answers
+    from the plan cache makes none (its cache key stays the oracle's)."""
+
+    def __init__(self, hw):
+        super().__init__(hw)
+        self.queries = 0
+
+    def group_time(self, g, gid):
+        self.queries += 1
+        return super().group_time(g, gid)
+
+
+def _rel_errors(model, samples) -> np.ndarray:
+    pred = GNN.predict_times(model, samples)
+    true = np.array([s[3] for s in samples])
+    return np.abs(pred - true) / true
+
+
+def phase_estimator(dev, tmp: str, leaves, step_s: float) -> float:
+    """DisCo's cost model on the card: ``calibrate_hw`` fits the card's
+    peak, bandwidth and launch cost; full tinyllama-1.1b's step, traced as
+    in the search path, is simulated under the fit and under ``H100_SXM``
+    beside the measured step (the paper's Table 2); the GNN is trained on
+    the card on tier A fused groups of that graph (the reference's fig11
+    settings) and held against its CPU forward; the step is searched with
+    the GNN as the cost model and with the oracle, the GNN's Plan scored
+    by the oracle beside the paper's baselines (Fig. 6, Fig. 11) and
+    enacted through ``train.main --strategy-file`` with its kernels and
+    collectives counted; tier B fused ops are compiled and timed on the
+    card and the GNN's held-out error on them printed (Fig. 9); and a
+    cached compile replays with no query.  Returns bucket_pack's largest
+    error on the GNN Plan's unfused buckets."""
+    t_phase = time.time()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the GNN's card-against-CPU check "
+                             "assumes f32 matmuls")
+    cal = PROF.calibrate_hw(dev)
+    h = H100_SXM
+    print(f"calibrated {cal.name}: peak {cal.peak_flops / 1e12:.1f} TFLOP/s "
+          f"(bf16 matmul 8192^3; H100_SXM {h.peak_flops / 1e12:.1f} x "
+          f"efficiency {h.efficiency}), read+write "
+          f"{cal.hbm_bw / 1e12:.3f} TB/s (H100_SXM {h.hbm_bw / 1e12:.3f}), "
+          f"launch {cal.launch_overhead * 1e6:.2f} us of host time "
+          f"(H100_SXM {h.launch_overhead * 1e6:.2f})")
+
+    cfg = get_config(ARCH)
+    t = time.time()
+    g = RP.trace_model_graph(cfg, batch=BATCH, seq=SEQ, reduced=False,
+                             hw=cal)
+    trace_s = time.time() - t
+    sim_cal = Simulator(hw=cal, n_devices=1).run(g).iteration_time
+    sim_h100 = Simulator(hw=h, n_devices=1).run(
+        profile_graph(g, h)).iteration_time
+    print(f"Table 2, {ARCH} batch {BATCH} x seq {SEQ} ({len(g.prims)} "
+          f"prims, traced in {trace_s:.1f} s): simulated dp=1 step "
+          f"{sim_cal * 1e3:.1f} ms calibrated, {sim_h100 * 1e3:.1f} ms "
+          f"under H100_SXM, measured {step_s * 1e3:.1f} ms (phase (j)): "
+          f"{(sim_cal / step_s - 1) * 100:+.1f}% and "
+          f"{(sim_h100 / step_s - 1) * 100:+.1f}%")
+
+    # tier A: oracle-labelled fused groups of the traced step
+    corpus = PROF.sample_fused_groups(g, EST_SAMPLES, random.Random(0),
+                                      max_members=16, hw=cal)
+    gcfg = GNN.GNNConfig(n_layers=2, n_heads=4, head_dim=16, mlp_dim=64)
+    t = time.time()
+    model, losses = GNN.train(corpus, gcfg, epochs=EST_EPOCHS,
+                              batch_size=32, seed=0, device=dev)
+    train_s = time.time() - t
+    if not losses[-1] < losses[0] * 0.5:
+        raise AssertionError(f"GNN training loss did not fall: {losses}")
+    feats = [torch.from_numpy(np.stack([s[k] for s in corpus]))
+             for k in range(3)]
+    with torch.no_grad():
+        on_card = GNN.forward_batch(model, *[f.to(dev) for f in feats])
+        on_cpu = GNN.forward_batch(copy.deepcopy(model).cpu(), *feats)
+    fwd_err = float((on_card.cpu() - on_cpu).abs().max())
+    if not fwd_err <= 1e-5:
+        raise AssertionError(f"GNN forward on the card is {fwd_err} from "
+                             f"the CPU's in log-time")
+    rel = _rel_errors(model, corpus)
+    print(f"tier A: {len(corpus)} fused groups of the traced step; GNN "
+          f"{gcfg} trained on the card in {train_s:.1f} s, loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.4f}; forward on the card "
+          f"within {fwd_err:.2e} of the CPU's (log-time); training-set "
+          f"error p50 {np.percentile(rel, 50):.3f}")
+
+    # search priced by the GNN and by the oracle, both scored by the oracle
+    spec = get_preset(SEARCH_CLUSTER)
+    gnn = GNN.GNNEstimator(model, gcfg, device=dev)
+    oracle_sim = Simulator(hw=cal, cluster=spec)
+    kw = dict(graph=g, cluster=spec, hw=cal, unchanged_limit=80, seed=0)
+    plan_o = RP.compile(**kw)
+    plan_g = RP.compile(estimator=gnn, **kw)
+    true_g = oracle_sim.cost(plan_g.to_graph(g))
+    best_o = oracle_sim.cost(plan_o.to_graph(g))
+    for name, pl in (("oracle", plan_o), ("GNN", plan_g)):
+        pv = pl.provenance
+        print(f"search with the {name}: {pv['search_wall_time']:.3f} s, "
+              f"{pv['steps']} steps, {pv['simulations']} simulations, "
+              f"{len(pl.buckets)} buckets, priced "
+              f"{pl.predicted_iteration_time * 1e3:.3f} ms")
+    print(f"GNN estimator: {gnn.queries} queries, "
+          f"{gnn.query_seconds / max(gnn.queries, 1) * 1e3:.3f} ms of host "
+          f"time each (a batch-1 forward and a sync)")
+    print(f"Fig. 11: the GNN's Plan scored by the oracle {true_g * 1e3:.3f} "
+          f"ms against the oracle's {best_o * 1e3:.3f} ms: gap "
+          f"{(true_g / best_o - 1) * 100:+.2f}%")
+    base = evaluate_baselines(g, oracle_sim)
+    rows = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in base.items())
+    print(f"Fig. 6, priced by the oracle on {SEARCH_CLUSTER}: {rows}; "
+          f"DisCo (oracle) {best_o * 1e3:.3f}; DisCo (GNN) "
+          f"{true_g * 1e3:.3f} ms")
+
+    # the GNN's Plan enacted on the card
+    path = os.path.join(tmp, "gnn_plan.json")
+    plan_g.save(path)
+    if RP.Plan.load(path).estimator != "GNNEstimator":
+        raise AssertionError("the saved Plan does not record the GNN")
+    strat = TS.GradSyncStrategy.load(path, params=leaves)
+    want, calls = implied_counts(strat, leaves, STEPS)
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    TS.reset_collectives()
+    out = TRAIN.main(["--arch", ARCH, "--steps", str(STEPS), "--batch",
+                      str(BATCH), "--seq", str(SEQ), "--strategy-file",
+                      path, "--log-every", "1", "--device", "cuda"])
+    launches = {name: getattr(K, name).launches for name in want}
+    coll = dict(TS.COLLECTIVES)
+    if launches != want or coll != calls:
+        raise AssertionError(f"GNN Plan: launches {launches}, collectives "
+                             f"{coll}; the Plan implies {want}, {calls}")
+    if not all(math.isfinite(l) for l in out["losses"]):
+        raise AssertionError(f"GNN Plan: losses {out['losses']}")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in leaves]
+    err = check_bucket_pack(strat, grads)
+    del grads
+    print(f"GNN Plan enacted: buckets {strat.buckets}; losses "
+          f"{out['losses']}; step "
+          f"{statistics.median(out['step_seconds'][1:]) * 1e3:.1f} ms; "
+          f"launches {launches}; collectives {coll}; bucket_pack bitwise "
+          f"on its unfused buckets")
+
+    # tier B: fused ops compiled and timed on the card (Fig. 9, --measured)
+    rec = {}
+    measured = PROF.measured_fused_samples(
+        TIER_B_SAMPLES, seed=0, max_nodes=TIER_B_NODES, dim=TIER_B_DIM,
+        device=dev, record=rec)
+    labels = [s[3] for s in measured]
+    if rec["graphs"] != len(measured) or not all(
+            math.isfinite(x) and x > 0 for x in labels):
+        raise AssertionError(f"tier B: {rec['graphs']} graphs for "
+                             f"{len(measured)} samples, labels {labels}")
+    random.Random(0).shuffle(measured)
+    n_tr = int(len(measured) * 0.85)
+    bcfg = GNN.GNNConfig(n_layers=3, n_heads=4, head_dim=16, mlp_dim=64)
+    model_b, losses_b = GNN.train(measured[:n_tr], bcfg, epochs=60,
+                                  batch_size=32, seed=0, device=dev)
+    rel = _rel_errors(model_b, measured[n_tr:])
+    print(f"Fig. 9 tier B: {len(measured)} fused ops of up to "
+          f"{TIER_B_NODES} ops on f32 ({TIER_B_DIM}, {TIER_B_DIM}), each "
+          f"one graph; {min(labels) * 1e3:.3f}-{max(labels) * 1e3:.3f} ms "
+          f"on the card; compile {rec['compile_s']:.1f} s, timing "
+          f"{rec['time_s']:.1f} s; GNN {bcfg} on {n_tr}, loss "
+          f"{losses_b[0]:.3f} -> {losses_b[-1]:.4f}; held-out "
+          f"{len(rel)}: error p50 {np.percentile(rel, 50):.3f} p90 "
+          f"{np.percentile(rel, 90):.3f} p95 {np.percentile(rel, 95):.3f}, "
+          f"within 14%: {np.mean(rel < 0.14):.2f} (the paper: over 0.90 "
+          f"on a GPU)")
+
+    # the plan cache: the second compile is a hit that makes no query
+    cdir = os.path.join(tmp, "plan-cache")
+    first, second = _CountingOracle(cal), _CountingOracle(cal)
+    cold = RP.compile(estimator=first, cache=cdir, **kw)
+    hit = RP.compile(estimator=second, cache=cdir, **kw)
+    if (hit.provenance["cache"]["outcome"] != "hit" or second.queries
+            or hit != cold):
+        raise AssertionError(f"plan cache: {hit.provenance['cache']}, "
+                             f"{second.queries} queries on the second "
+                             f"compile")
+    print(f"plan cache: cold compile {first.queries} oracle queries, then "
+          f"a hit with 0 in {hit.provenance['facade_wall_time']:.3f} s")
+    wall = time.time() - t_phase
+    if wall > ESTIMATOR_LIMIT_S:
+        raise AssertionError(f"estimator phase took {wall:.1f} s, over "
+                             f"{ESTIMATOR_LIMIT_S} s")
+    print(f"estimator phase: {wall:.1f} s")
     return err
 
 
@@ -1540,8 +1752,10 @@ def main() -> int:
         phase_trace(plan)
         res["bucket_pack"], launches["bucket_pack"] = phase_unfused_buckets(
             dev, tmp, strat, leaves)
+        err, step_s = phase_search(dev, tmp, leaves)
+        err_gnn = phase_estimator(dev, tmp, leaves, step_s)
         res["bucket_pack"]["max_abs_err"] = max(
-            res["bucket_pack"]["max_abs_err"], phase_search(dev, tmp, leaves))
+            res["bucket_pack"]["max_abs_err"], err, err_gnn)
     torch.cuda.empty_cache()
 
     cfg = get_config(ARCH)

@@ -1,8 +1,10 @@
 """``repro_torch.core`` — the fusion IR, its cost substrate, the event
-simulator, the search and the tracer (port of ``repro/core``).  Not ported
-yet: the baselines, the analytic model, the CPU profiler and the GNN
-estimator.  Importing this package loads no torch: :mod:`.trace` is
-loaded on first use, so the search's worker processes stay light."""
+simulator, the search, the paper's baselines, the tracer, the profiler
+(:mod:`.profile`, which times fused ops on the card) and the GNN estimator
+(:mod:`.gnn`) (port of ``repro/core``).  Not ported yet: the analytic
+model.  Importing this package loads no torch: :mod:`.trace` is loaded on
+first use and :mod:`.gnn` and :mod:`.profile` are imported by name, so the
+search's worker processes stay light."""
 from .graph import DOT, EW, FusionGraph, LAYOUT, OPAQUE, PrimOp, REDUCE
 from .hw import (H100_SXM, Hardware, TPU_V5E, allreduce_time,
                  ring_allreduce_coeffs)
@@ -23,6 +25,9 @@ from .mutations import (ALL_METHODS, CHUNK_CHOICES, METHOD_ALGO,
                         METHOD_TENSOR, MUTATIONS, Mutation,
                         active_methods, random_apply, register_mutation)
 from .search import SearchResult, backtracking_search
+from .baselines import (BASELINES, assign_bucket_algos,
+                        assign_bucket_chunks, assign_bucket_comm,
+                        evaluate_baselines)
 
 __all__ = [
     "DOT", "EW", "FusionGraph", "LAYOUT", "OPAQUE", "PrimOp", "REDUCE",
@@ -42,6 +47,8 @@ __all__ = [
     "METHOD_PP_MICROBATCH", "METHOD_PP_SPLIT", "METHOD_TENSOR",
     "MUTATIONS", "Mutation", "active_methods", "register_mutation",
     "SearchResult", "backtracking_search", "random_apply",
+    "BASELINES", "assign_bucket_algos", "assign_bucket_chunks",
+    "assign_bucket_comm", "evaluate_baselines",
     "graph_from_fx", "trace_grad_graph",
 ]
 

@@ -14,9 +14,10 @@ Two modes:
   and search it.
 * ``compile(graph=g0, cluster=spec, ...)`` — search a pre-traced graph.
 
-Every default ``hw=`` is the H100 (``H100_SXM``).  The plan cache is not
-ported, so there is no ``cache=``.  The search provenance (steps,
-simulations, wall times, initial cost) rides along in ``plan.provenance``.
+Every default ``hw=`` is the H100 (``H100_SXM``).  ``cache=`` replays or
+warm-starts from a :class:`~repro_torch.plan.cache.PlanCache`.  The search
+provenance (steps, simulations, wall times, initial cost) rides along in
+``plan.provenance``.
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ def compile_plan(cfg=None, *, cluster=None, streams: int = 1,
                  batch: int = 8, seq: int = 64, reduced: bool = True,
                  alpha: float = 1.05, beta: int = 10,
                  unchanged_limit: int = 200, max_steps: int | None = None,
-                 methods=None, seed: int = 0) -> Plan:
+                 methods=None, seed: int = 0,
+                 cache=None, warm_start: bool = True) -> Plan:
     """Search once, return the strategy as a first-class artifact.
 
     ``cfg`` is a config name / ModelConfig (traced via
@@ -84,6 +86,16 @@ def compile_plan(cfg=None, *, cluster=None, streams: int = 1,
     ``0.0`` to exclude the fused dimension from the search); the
     remaining knobs are the search hyper-parameters of
     ``backtracking_search``.
+
+    ``cache`` (a :class:`repro_torch.plan.cache.PlanCache` or a directory
+    path) short-circuits the search (DESIGN.md Sec. 12): an exact key hit —
+    same graph content-signature, cluster/pricing fingerprint and search
+    knobs — *replays* the stored Plan bit-identically (no simulator
+    evaluations); a near miss re-applies the most similar cached plan's
+    strategy onto this graph as the backtracking search's warm start
+    state (``warm_start=False`` disables that half), and the result is
+    stored back.  ``plan.provenance['cache']`` records the outcome
+    (``hit`` / ``warm`` / ``cold``) and the warm-start lineage.
     """
     t_start = _time.perf_counter()
     if isinstance(cluster, str):
@@ -104,11 +116,58 @@ def compile_plan(cfg=None, *, cluster=None, streams: int = 1,
                     tp=tp, level_chunks=level_chunks,
                     overlap_discount=overlap_discount)
 
+    # ---------------------------------------------------------- plan cache
+    store = key = features = None
+    initial = None
+    cache_prov: dict = {}
+    if cache is not None:
+        from .cache import (cache_features, compile_key, graph_digest,
+                            knob_digest, open_cache, warm_start_state)
+
+        store = open_cache(cache)
+        knobs = knob_digest(alpha=alpha, beta=beta,
+                            unchanged_limit=unchanged_limit,
+                            max_steps=max_steps, methods=methods, seed=seed)
+        gd = graph_digest(graph)
+        key = compile_key(graph, sim, knobs, digest=gd)
+        features = cache_features(graph, sim, arch=arch, knobs=knobs,
+                                  digest=gd)
+        hit = store.get(key)
+        if hit is not None:
+            # exact-key replay: the stored artifact IS the answer — same
+            # strategy, same fingerprints, same predicted price, zero
+            # simulator evaluations
+            hit.provenance["cache"] = {"outcome": "hit", "key": key}
+            hit.provenance["facade_wall_time"] = \
+                _time.perf_counter() - t_start
+            return hit
+        cache_prov = {"outcome": "cold", "key": key}
+        if warm_start:
+            for score, ent, near in store.nearest(features, exclude=key):
+                g_warm = warm_start_state(near, graph, sim)
+                if g_warm is None:
+                    continue  # wrong trace family — next candidate
+                warm_cost = sim.cost(g_warm)
+                if warm_cost >= sim.cost(graph):
+                    # prices worse than the trivial start: a misleading
+                    # seed state buys nothing — fall through to cold
+                    continue
+                initial = g_warm
+                store.stats["warm_starts"] += 1
+                cache_prov = {
+                    "outcome": "warm", "key": key,
+                    "warm_from": ent.get("key"),
+                    "warm_similarity": score,
+                    "warm_from_cluster": ent.get("cluster_name"),
+                    "warm_start_cost": warm_cost,
+                }
+                break
+
     kw = {} if methods is None else {"methods": tuple(methods)}
     res = backtracking_search(
         graph, sim, alpha=alpha, beta=beta,
         unchanged_limit=unchanged_limit, max_steps=max_steps, seed=seed,
-        workers=workers, **kw)
+        workers=workers, initial=initial, **kw)
     plan = Plan.from_graph(
         res.best, sim=sim, predicted=res.best_cost,
         provenance={
@@ -122,6 +181,9 @@ def compile_plan(cfg=None, *, cluster=None, streams: int = 1,
             "quality_history": [list(t) for t in res.quality_history],
             "seed": seed,
         })
+    if store is not None:
+        plan.provenance["cache"] = cache_prov
+        store.put(key, plan, features)
     plan.provenance["facade_wall_time"] = _time.perf_counter() - t_start
     return plan
 

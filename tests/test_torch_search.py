@@ -239,9 +239,39 @@ def test_plan_json_loads_in_the_other_package(writer, tinyllama, tmp_path):
         PTS.GradSyncStrategy.load(path, params=params)) == want
 
 
-def test_compile_takes_no_cache(tinyllama):
-    with pytest.raises(TypeError):
-        PP.compile(graph=tinyllama[1], cache="plans")
+def test_compile_cache_hits(tinyllama, tmp_path):
+    """``compile(cache=)`` stores the cold Plan and replays it on the
+    second call (``tests/test_torch_plan_cache.py`` holds the cache)."""
+    kw = dict(graph=tinyllama[1], cluster=SPEC, streams=4, hw=PCO.TPU_V5E,
+              unchanged_limit=10, max_steps=10, cache=str(tmp_path))
+    cold = PP.compile(**kw)
+    hit = PP.compile(**kw)
+    assert cold.provenance["cache"]["outcome"] == "cold"
+    assert hit.provenance["cache"]["outcome"] == "hit"
+    assert hit == cold
+
+
+# ---------------------------------------------------------------- baselines
+@pytest.mark.parametrize("name", sorted(RCO.BASELINES))
+def test_baseline_strategies_match_reference(name, tinyllama):
+    rg, pg = tinyllama
+    assert sorted(PCO.BASELINES) == sorted(RCO.BASELINES)
+    rb, pb = RCO.BASELINES[name](rg), PCO.BASELINES[name](pg)
+    assert pb.signature() == rb.signature()
+    assert pb.fast_signature() == rb.fast_signature()
+
+
+@pytest.mark.parametrize("kind", ["flat", "streams1", "streams4"])
+def test_evaluate_baselines_is_bit_identical(kind, tinyllama):
+    if kind == "flat":
+        rsim = RCO.Simulator(hw=RCO.TPU_V5E, n_devices=64)
+        psim = PCO.Simulator(hw=PCO.TPU_V5E, n_devices=64)
+    else:
+        rsim, psim = simulators(kind)
+    rg, pg = tinyllama
+    want = RCO.evaluate_baselines(rg, rsim)
+    assert PCO.evaluate_baselines(pg, psim) == want
+    assert len(want) == (6 if kind == "flat" else 11)
 
 
 def test_worker_pool_search_matches_serial(tinyllama):
