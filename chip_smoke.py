@@ -131,7 +131,28 @@ Phases, each of which stops the run with a nonzero exit on failure:
     share within 14%; a compile into a plan cache, repeated, is a hit
     that makes no oracle query.  The phase must finish within
     ``ESTIMATOR_LIMIT_S``.
-(r) a JSON line of every kernel's numbers, then the device line last.
+(r) the per-layer model, full tinyllama-1.1b (after (l), on its weights):
+    the step at batch 4 x seq 2048 traced on meta tensors with
+    ``model="layers"`` at 6 and 22 layers (no opaque prim, one gradient
+    marker per leaf) and searched on ``h100_superpod`` under ``H100_SXM``
+    (prims by category, trace and search seconds, the Plan's buckets, the
+    simulated compute; trace plus search at 22 layers within 120 s); one
+    loss and its gradients on the card (``remat``), the per-layer model
+    against the stacked one on the same bf16 weights (the loss within
+    ``LAYERS_LOSS_RTOL``, the global gradient norm within
+    ``LAYERS_GNORM_RTOL``), then 5 such steps of each model timed, with the
+    per-layer model's peak memory; a 2048-token prefill through the flash kernel: 22 launches,
+    all on the tensor cores, and last-token logits equal to the stacked
+    model's prefill.
+(s) the serving plan: ``compile_serving`` for (l)'s traffic on
+    ``h100_superpod`` at TP degree 1 (the knobs, the predicted tokens/s
+    and TTFT p99, the search seconds); the plan saved and loaded bit for
+    bit; a compile through a ``PlanCache`` repeated is a hit that runs no
+    simulation; then ``ServeEngine(params, cfg, plan=plan)`` serves (l)'s
+    35 requests as (l) does (every request in full, flash once per layer
+    per prefill on the tensor cores, the engine's ``kv_layout`` the
+    plan's), its metrics printed beside (l)'s and the plan's prediction.
+(t) a JSON line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
@@ -162,18 +183,20 @@ from repro_torch import plan as RP  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
 from repro_torch.cluster import get_preset  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (OracleEstimator, Simulator,  # noqa: E402
-                              evaluate_baselines, profile_graph)
+from repro_torch.core import (OPAQUE, OracleEstimator,  # noqa: E402
+                              Simulator, evaluate_baselines, profile_graph)
 from repro_torch.core import gnn as GNN  # noqa: E402
 from repro_torch.core import profile as PROF  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import stacked as ST  # noqa: E402
 from repro_torch.optim import adamw, apply_updates  # noqa: E402
 from repro_torch.optim import clip_by_global_norm  # noqa: E402
 from repro_torch.serving import engine as ENG  # noqa: E402
+from repro_torch.serving import plan as SP  # noqa: E402
 from repro_torch.serving import workload as WL  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -198,6 +221,16 @@ SEARCH_CLUSTER, SEARCH_LIMIT_S = "h100_superpod", 120.0
 EST_SAMPLES, EST_EPOCHS = 250, 40
 TIER_B_SAMPLES, TIER_B_NODES, TIER_B_DIM = 192, 10, 2048
 ESTIMATOR_LIMIT_S = 600.0
+# the per-layer phase: the depths it traces and searches at the training
+# batch, the loss-and-gradient steps it times, and the per-layer model
+# against the stacked one on the same bf16 weights: the loss relative (full
+# against chunked cross-entropy) and the global gradient norm relative
+LAYERS_DEPTHS = (6, 22)
+LAYERS_STEPS = 5
+LAYERS_LOSS_RTOL, LAYERS_GNORM_RTOL = 1e-3, 1e-2
+# the serving-plan phase: the cluster it prices (one card's TP group, so
+# the priced deployment is the one the card enacts)
+SERVE_PLAN_TP = 1
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -1659,9 +1692,9 @@ def phase_decode_trace(dev, params, cfg, cache_len: int,
     del caches
 
 
-def phase_serving(dev, params, cfg, cell: Serving) -> dict:
-    """The serving path: the cell's requests through ``ServeEngine``, all
-    submitted at once.  Returns the kernels' launches of that run."""
+def _cell_requests(cfg, cell: Serving) -> list:
+    """The cell's traffic: its workload's requests plus the extra prompts
+    of 32 new tokens each."""
     wl = cell.workload
     reqs = WL.materialize_requests(wl, cfg.vocab)
     for r in _engine_requests(cfg.vocab, 1, cell.extra_prompts, 32):
@@ -1670,8 +1703,31 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
     for r in reqs:
         if len(r.prompt) + r.max_new_tokens > cell.cache_len - 1:
             raise AssertionError(f"request {r.rid} does not fit the cache")
-    eng = ENG.ServeEngine(params, cfg, max_slots=SLOTS,
-                          cache_len=cell.cache_len)
+    return reqs
+
+
+def phase_serving(dev, params, cfg, cell: Serving, plan=None) -> tuple:
+    """The serving path: the cell's requests through ``ServeEngine``, all
+    submitted at once; with ``plan``, the engine the serving plan sets up
+    (slots, decode batch, cache length, KV layout), else the default 8
+    slots.  Returns the kernels' launches of that run, the engine's
+    metrics and the peak memory in bytes."""
+    reqs = _cell_requests(cfg, cell)
+    if plan is None:
+        eng = ENG.ServeEngine(params, cfg, max_slots=SLOTS,
+                              cache_len=cell.cache_len)
+    else:
+        eng = ENG.ServeEngine(params, cfg, plan=plan)
+        if eng.kv_layout != plan.kv_layout:
+            raise AssertionError(f"engine kv_layout {eng.kv_layout}, the "
+                                 f"plan's {plan.kv_layout}")
+        if (eng.max_slots, eng.decode_batch, eng.cache_len) != (
+                plan.slots, min(plan.decode_batch, plan.slots),
+                cell.cache_len):
+            raise AssertionError(
+                f"engine {eng.max_slots} slots, batch {eng.decode_batch}, "
+                f"cache {eng.cache_len}; the plan's {plan.slots}, "
+                f"{plan.decode_batch}, {plan.cache_len}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -1714,9 +1770,11 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
     m = eng.metrics()
     plens = [len(r.prompt) for r in reqs]
     print(f"serving {cell.arch}: {len(reqs)} requests (prompts "
-          f"{min(plens)}-{max(plens)} tokens, {sum(plens)} in all), {SLOTS} "
-          f"slots, cache {cell.cache_len}, {cfg.dtype}; {m['tokens']} tokens "
-          f"in {m['decode_steps']} decode steps, {wall:.2f} s wall")
+          f"{min(plens)}-{max(plens)} tokens, {sum(plens)} in all), "
+          f"{eng.max_slots} slots (decode batch {eng.decode_batch}, kv "
+          f"{eng.kv_layout}), cache {eng.cache_len}, {cfg.dtype}; "
+          f"{m['tokens']} tokens in {m['decode_steps']} decode steps, "
+          f"{wall:.2f} s wall")
     print(f"serving metrics: ttft p50 {m['ttft_p50_s'] * 1e3:.1f} ms, p99 "
           f"{m['ttft_p99_s'] * 1e3:.1f} ms; tpot p50 "
           f"{m['tpot_p50_s'] * 1e3:.2f} ms, p99 {m['tpot_p99_s'] * 1e3:.2f} "
@@ -1725,6 +1783,240 @@ def phase_serving(dev, params, cfg, cell: Serving) -> dict:
           f"over the span; max_memory_allocated {peak / 2**30:.2f} GiB")
     print(f"launches on the serving path: {launches}; flash on the "
           f"tensor-core route: {flash_tc} of {launches['flash_attention']}")
+    return launches, m, peak
+
+
+def _describe_buckets(plan) -> str:
+    """A Plan's buckets: count, then (comm kind, chunks, fused) with how
+    many buckets take each and their leaves in all."""
+    kinds: dict = {}
+    fused = plan.bucket_fused or (0,) * len(plan.buckets)
+    for b, comm, chunks, fu in zip(plan.buckets, plan.bucket_comm,
+                                   plan.bucket_chunks, fused):
+        key = f"{comm} x{chunks}{' fused' if fu else ''}"
+        n, leaves = kinds.get(key, (0, 0))
+        kinds[key] = (n + 1, leaves + len(b))
+    return f"{len(plan.buckets)} buckets: " + ", ".join(
+        f"{n} {key} ({leaves} leaves)" for key, (n, leaves) in kinds.items())
+
+
+def _loss_and_grads(loss_fn, leaves) -> tuple[float, list, float]:
+    """One loss and its gradients on the card; returns the loss, the
+    gradients and the seconds from the call to a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn()
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads, time.perf_counter() - t0
+
+
+def _global_norm(grads) -> float:
+    return float(torch.sqrt(sum(g.float().square().sum() for g in grads)))
+
+
+def phase_layers(dev, params, cfg) -> int:
+    """The per-layer model at full width: its step traced on meta tensors
+    (``model="layers"``) at each of ``LAYERS_DEPTHS`` and searched for
+    ``SEARCH_CLUSTER`` under ``H100_SXM``; one loss and its gradients on the
+    card (``remat``) against the stacked model's on the same weights, and
+    ``LAYERS_STEPS`` more of each timed; a 2048-token prefill through the flash
+    kernel, its launches counted, against the stacked model's prefill.
+    Returns the prefill's flash launches."""
+    from collections import Counter
+
+    sims = {}
+    for depth in LAYERS_DEPTHS:
+        t0 = time.perf_counter()
+        g = RP.trace_model_graph(cfg, batch=BATCH, seq=SEQ, model="layers",
+                                 n_layers=depth, reduced=False, hw=H100_SXM)
+        trace_s = time.perf_counter() - t0
+        cats = dict(Counter(p.category for p in g.prims))
+        with torch.device("meta"):
+            want_leaves = len(T.leaves(M.init_params(
+                dataclasses.replace(cfg, n_layers=depth), device="meta")))
+        if cats.get(OPAQUE) or len(g.grad_prim) != want_leaves:
+            raise AssertionError(f"per-layer trace at {depth} layers: "
+                                 f"{cats}, {len(g.grad_prim)} gradient "
+                                 f"leaves, want no opaque prim and "
+                                 f"{want_leaves}")
+        plan = RP.compile(graph=g, cluster=SEARCH_CLUSTER, hw=H100_SXM)
+        prov = plan.provenance
+        search_s = prov["facade_wall_time"]
+        if depth == cfg.n_layers and trace_s + search_s > SEARCH_LIMIT_S:
+            raise AssertionError(f"per-layer trace {trace_s:.1f} s + search "
+                                 f"{search_s:.1f} s exceed {SEARCH_LIMIT_S} s")
+        if sorted(i for b in plan.buckets for i in b) != list(
+                range(want_leaves)):
+            raise AssertionError(f"per-layer Plan at {depth} layers does "
+                                 f"not cover the {want_leaves} leaves once")
+        sim = plan.simulator()
+        compute = (sim.run(g).compute_time,
+                   sim.run(plan.to_graph(g)).compute_time)
+        sims[depth] = compute
+        fused = sum(len(grp) > 1 for grp in plan.groups)
+        print(f"per-layer {ARCH} at {depth} layers (batch {BATCH} x seq "
+              f"{SEQ}) on {SEARCH_CLUSTER}: {len(g.prims)} prims {cats}, "
+              f"{len(g.grad_prim)} gradient leaves; trace {trace_s:.2f} s, "
+              f"search {search_s:.2f} s ({prov['steps']} steps, "
+              f"{prov['simulations']} simulations); simulated "
+              f"{prov['initial_cost'] * 1e3:.3f} -> "
+              f"{prov['best_cost'] * 1e3:.3f} ms; {fused} fused op groups; "
+              f"{_describe_buckets(plan)}; dp=1 compute "
+              f"{compute[0] * 1e3:.1f} ms unfused, {compute[1] * 1e3:.1f} "
+              f"ms with the Plan's op fusion")
+
+    # loss and gradients on the card, the per-layer model against the
+    # stacked one on the same weights (the per-layer leaves are copies)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab, (BATCH, SEQ), device=dev,
+                           generator=gen)
+    batch = {"tokens": tokens}
+    st_leaves = ST.leaves(params)
+    st_s = []
+    for i in range(LAYERS_STEPS + 1):
+        st_loss, st_grads, secs = _loss_and_grads(
+            lambda: ST.loss_fn(params, cfg, batch, remat=True), st_leaves)
+        if i == 0:
+            st_norm = _global_norm(st_grads)
+        else:
+            st_s.append(secs)
+        del st_grads
+    per_layer = M.from_stacked(params, cfg)
+    per_layer["layers"] = [T.map(torch.clone, p)
+                           for p in per_layer["layers"]]
+    leaves = T.leaves(per_layer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(LAYERS_STEPS + 1):
+        loss, grads, secs = _loss_and_grads(
+            lambda: M.loss_fn(per_layer, cfg, batch, remat=True), leaves)
+        if i == 0:
+            norm = _global_norm(grads)
+        else:
+            step_s.append(secs)
+        del grads
+    peak = torch.cuda.max_memory_allocated()
+    if not (math.isfinite(loss) and abs(loss - st_loss)
+            <= LAYERS_LOSS_RTOL * abs(st_loss)):
+        raise AssertionError(f"per-layer loss {loss}, stacked {st_loss}")
+    if abs(norm - st_norm) > LAYERS_GNORM_RTOL * st_norm:
+        raise AssertionError(f"per-layer gradient norm {norm}, stacked "
+                             f"{st_norm}")
+    med = statistics.median(step_s)
+    depth = cfg.n_layers
+    print(f"per-layer loss and gradients on the card ({BATCH} x {SEQ}, "
+          f"remat, {len(leaves)} leaves): loss {loss:.6f} (stacked "
+          f"{st_loss:.6f}, rel {abs(loss - st_loss) / st_loss:.2e}), "
+          f"gradient norm {norm:.6f} (stacked {st_norm:.6f}, rel "
+          f"{abs(norm - st_norm) / st_norm:.2e}); median of "
+          f"{LAYERS_STEPS} steps {med * 1e3:.1f} ms "
+          f"({med * 1e3 / depth:.2f} ms a layer; stacked "
+          f"{statistics.median(st_s) * 1e3:.1f} ms), peak "
+          f"{peak / 2**30:.2f} GiB; simulated dp=1 compute of the "
+          f"{depth}-layer graph {sims[depth][0] * 1e3:.1f} ms unfused "
+          f"({sims[depth][0] * 1e3 / depth:.2f} ms a layer), "
+          f"{sims[depth][1] * 1e3:.1f} ms with the Plan's op fusion; the "
+          f"trace has no remat")
+    del per_layer, leaves
+    torch.cuda.empty_cache()
+
+    # prefill through the flash kernel: one launch per layer, on the
+    # tensor cores; the stacked model's prefill runs the same ops
+    toks = tokens[:1]
+    per_layer = M.from_stacked(params, cfg)
+    K.reset_launches()
+    with torch.no_grad():
+        logits, caches = M.prefill(per_layer, cfg, toks,
+                                   TINYLLAMA.cache_len, use_kernels=True)
+        torch.cuda.synchronize()
+        launches = K.flash_attention.launches
+        tc = K.flash_attention.tc_launches
+        want, _ = ST.prefill(params, cfg, toks, TINYLLAMA.cache_len,
+                             use_kernels=True)
+    if launches != depth or tc != depth:
+        raise AssertionError(f"per-layer prefill: {launches} flash launches "
+                             f"({tc} on the tensor cores), want {depth}")
+    if len(caches) != depth or not torch.equal(logits, want):
+        raise AssertionError(
+            f"per-layer prefill logits differ from the stacked model's by "
+            f"{float((logits.float() - want.float()).abs().max())} (the "
+            f"same ops: want 0)")
+    print(f"per-layer prefill ({SEQ} tokens, kernels): {launches} flash "
+          f"launches, all on the tensor cores; last-token logits equal to "
+          f"the stacked prefill's (tolerance 0)")
+    return launches
+
+
+def phase_serving_plan(dev, params, cfg, default: dict) -> tuple:
+    """The serving plan on the card: ``compile_serving`` for the tinyllama
+    cell's traffic on ``h100_superpod`` at one card's TP group; the saved
+    plan loads bit for bit; a compile through a ``PlanCache`` repeated is a
+    hit with no simulation; then the plan is enacted by ``ServeEngine`` on
+    the cell's requests (``phase_serving`` with the plan).  ``default`` is
+    phase (l)'s metrics and peak, printed beside the plan's.  Returns the
+    plan run's launches."""
+    wl = TINYLLAMA.workload
+    kw = dict(cluster=SEARCH_CLUSTER, tp_degree=SERVE_PLAN_TP,
+              cache_len=TINYLLAMA.cache_len, workload=wl)
+    t0 = time.perf_counter()
+    plan = SP.compile_serving(ARCH, **kw)
+    search_s = time.perf_counter() - t0
+    d = plan.describe()
+    print(f"serving plan {ARCH} on {SEARCH_CLUSTER} (tp {SERVE_PLAN_TP}, "
+          f"cache {TINYLLAMA.cache_len}): slots {d['slots']}, decode batch "
+          f"{d['decode_batch']}, kv {d['kv_layout']}, algo {d['algo']}, "
+          f"streams {d['streams']}; predicted "
+          f"{plan.predicted_tokens_per_s:.1f} tokens/s, ttft p99 "
+          f"{plan.predicted_ttft_p99_s * 1e3:.3f} ms; search {search_s:.3f} "
+          f"s ({plan.provenance['steps']} steps, "
+          f"{plan.provenance['simulations']} simulations)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.json")
+        plan.save(path)
+        loaded = SP.ServingPlan.load(path)
+        again = loaded.save(os.path.join(tmp, "again.json"))
+        if (loaded != plan or loaded.fingerprint() != plan.fingerprint()
+                or open(path).read() != open(again).read()):
+            raise AssertionError("the serving plan does not round-trip")
+        cache = os.path.join(tmp, "cache")
+        cold = SP.compile_serving(ARCH, cache=cache, **kw)
+        runs = []
+        run = SP.ServingSimulator._run
+        SP.ServingSimulator._run = lambda self, state: (
+            runs.append(1), run(self, state))[1]
+        try:
+            hit = SP.compile_serving(ARCH, cache=cache, **kw)
+        finally:
+            SP.ServingSimulator._run = run
+        if (cold.provenance["cache"]["outcome"] != "miss"
+                or hit.provenance["cache"]["outcome"] != "hit" or runs
+                or hit != plan):
+            raise AssertionError(f"serving plan cache: cold "
+                                 f"{cold.provenance['cache']}, then "
+                                 f"{hit.provenance['cache']} with "
+                                 f"{len(runs)} simulations")
+    print(f"serving plan: saved and loaded bit for bit "
+          f"[{plan.fingerprint()}]; a cached compile repeated is a hit with "
+          f"0 simulations")
+    launches, m, peak = phase_serving(dev, params, cfg, TINYLLAMA,
+                                      plan=loaded)
+    dm, dpeak = default["metrics"], default["peak"]
+    print(f"serving plan against the default engine ({SLOTS} slots) and "
+          f"the plan's prediction: ttft p50 {m['ttft_p50_s'] * 1e3:.1f} / "
+          f"{dm['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+          f"{m['ttft_p99_s'] * 1e3:.1f} / {dm['ttft_p99_s'] * 1e3:.1f} ms "
+          f"(predicted {plan.predicted_ttft_p99_s * 1e3:.3f}); tpot p50 "
+          f"{m['tpot_p50_s'] * 1e3:.2f} / {dm['tpot_p50_s'] * 1e3:.2f} ms, "
+          f"p99 {m['tpot_p99_s'] * 1e3:.2f} / {dm['tpot_p99_s'] * 1e3:.2f} "
+          f"ms; {m['tokens_per_s']:.1f} / {dm['tokens_per_s']:.1f} tokens/s "
+          f"(predicted {plan.predicted_tokens_per_s:.1f}); peak "
+          f"{peak / 2**30:.2f} / {dpeak / 2**30:.2f} GiB")
     return launches
 
 
@@ -1761,7 +2053,10 @@ def main() -> int:
     cfg = get_config(ARCH)
     params = ST.init_params(cfg, seed=0, device=dev)
     phase_serving_checks(dev, params, cfg, TINYLLAMA)
-    served = phase_serving(dev, params, cfg, TINYLLAMA)
+    served, m, peak = phase_serving(dev, params, cfg, TINYLLAMA)
+    flash_layers = phase_layers(dev, params, cfg)
+    served_plan = phase_serving_plan(dev, params, cfg,
+                                     {"metrics": m, "peak": peak})
     del params
     torch.cuda.empty_cache()
 
@@ -1778,17 +2073,21 @@ def main() -> int:
               f"parameters in {len(ST.leaves(params))} leaves drawn on the "
               f"card in {time.time() - t1:.1f} s")
         phase_serving_checks(dev, params, cfg, cell)
-        served_by[cell.arch] = phase_serving(dev, params, cfg, cell)
+        served_by[cell.arch], _, _ = phase_serving(dev, params, cfg, cell)
         del params
         torch.cuda.empty_cache()
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
     launches["flash_attention"] = (served["flash_attention"]
-                                   + served_rg["flash_attention"])
+                                   + served_rg["flash_attention"]
+                                   + flash_layers
+                                   + served_plan["flash_attention"])
     launches["rglru_scan"] = served_rg["rglru_scan"]
     launches["rwkv6_wkv"] = served_rwkv["rwkv6_wkv"]
     print(f"launches on the serving paths: flash_attention "
           f"{served['flash_attention']} ({ARCH}) + "
-          f"{served_rg['flash_attention']} ({RG_ARCH}), rglru_scan "
+          f"{served_rg['flash_attention']} ({RG_ARCH}) + {flash_layers} "
+          f"(per-layer prefill) + {served_plan['flash_attention']} "
+          f"({ARCH}, serving plan), rglru_scan "
           f"{served_rg['rglru_scan']} ({RG_ARCH}), rwkv6_wkv "
           f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH})")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],

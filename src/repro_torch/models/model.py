@@ -1,12 +1,30 @@
-"""Decoder pieces shared by the stacked model (port of
-``repro/models/model.py``: ``init_layer``, ``_sinusoid``, ``_embed``,
-``_unembed``, ``_layer_fwd`` and ``init_cache``, for dense attention blocks,
-the RG-LRU blocks of the recurrent hybrid and RWKV-6 blocks)."""
+"""The per-layer decoder, and the pieces the stacked model shares with it
+(port of ``repro/models/model.py``), for dense attention blocks, the
+RG-LRU blocks of the recurrent hybrid and RWKV-6 blocks.
+
+Entry points, as in the reference:
+    init_params(cfg, seed=, device=)           {"embed", "layers": [...],
+                                               "final_norm", "lm_head"?}
+    forward(params, cfg, tokens)               (logits, aux)
+    loss_fn(params, cfg, batch)                mean next-token CE
+    init_cache(cfg, batch, cache_len)          per-layer decode state
+    prefill(params, cfg, tokens, cache_len)    (last logits, caches)
+    decode_step(params, cfg, caches, token, pos) (logits, caches)
+
+The per-layer tree's leaves come in the reference's ``jax.tree.leaves``
+order (``embed``, ``final_norm``, then each layer's, then ``lm_head``), so
+a Plan's bucket indices name the same tensors in both packages.  The
+per-layer model has no loop for the tracer to collapse: its trace shows
+every layer's ops.  MLA, MoE, the encoder-decoder and the VLM prefix are
+not ported (ROADMAP A6).
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree as T
 from . import layers as L
 from . import recurrent as R
 from .config import ModelConfig
@@ -58,6 +76,42 @@ def _unembed(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+def _sinusoid_positions(cfg: ModelConfig) -> bool:
+    """Whether the embedding gets sinusoidal positions: a model with no
+    rotary positions, unless it is recurrent (RG-LRU or RWKV), as in the
+    reference."""
+    return (cfg.rope_frac == 0.0 and cfg.block != "rwkv"
+            and cfg.recurrent is None)
+
+
+def _embed_positions(params, cfg: ModelConfig, tokens):
+    """Embedded tokens (B, S, D), with the sinusoid added where
+    :func:`_sinusoid_positions` says, and the positions (S,)."""
+    x = _embed(params, cfg, tokens)
+    S = x.shape[1]
+    if _sinusoid_positions(cfg):
+        x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
+    return x, torch.arange(S, device=x.device)
+
+
+def _decode_embed(params, cfg: ModelConfig, token, pos):
+    """A decode step's input: the embedded tokens (B, 1, D) with the
+    sinusoid at each row's position where :func:`_sinusoid_positions`
+    says, the positions (B, 1), and ``pos`` as (B,)."""
+    x = _embed(params, cfg, token[:, None])
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+    if _sinusoid_positions(cfg):
+        D = cfg.d_model
+        dim = torch.arange(0, D, 2, device=x.device).float() / D
+        ang = pos.float()[:, None] / torch.pow(10000.0, dim)
+        pe = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        pe[:, 0::2] = torch.sin(ang).to(x.dtype)
+        pe[:, 1::2] = torch.cos(ang).to(x.dtype)
+        x = x + pe[:, None]
+    return x, pos[:, None], pos
 
 
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
@@ -130,3 +184,106 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)})
     return caches
+
+
+
+# ---------------------------------------------------------- per-layer model
+_NOT_PORTED = "is not ported yet (ROADMAP A6)"
+
+
+def _check_supported(cfg: ModelConfig, batch=None) -> None:
+    """Raise for a block or an input that waits on ROADMAP A6: an MLA
+    block, the VLM prefix and the encoder's frames (the port's config has
+    no MoE, encoder or VLM fields yet)."""
+    if cfg.block not in ("attn", "rwkv"):
+        raise NotImplementedError(f"block {cfg.block!r} {_NOT_PORTED}")
+    for key in ("prefix_emb", "enc_frames"):
+        if batch is not None and batch.get(key) is not None:
+            raise NotImplementedError(f"batch[{key!r}] {_NOT_PORTED}")
+
+
+def from_stacked(params, cfg: ModelConfig) -> dict:
+    """The per-layer tree over a stacked model's parameters; each layer's
+    leaves are views of the stacked leaves (no copy)."""
+    from . import stacked as ST
+
+    out = {k: v for k, v in params.items() if k != "groups"}
+    out["layers"] = ST._layers(params, cfg)
+    return out
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random per-layer parameters: the weights that the stacked model's
+    ``init_params`` draws for the same seed, each layer's copied out of the
+    stack.  Dtypes as in the reference: ``final_norm`` f32, the rest
+    ``cfg.dtype``."""
+    from . import stacked as ST
+
+    _check_supported(cfg)
+    out = from_stacked(ST.init_params(cfg, seed=seed, device=device), cfg)
+    out["layers"] = [T.map(torch.clone, p) for p in out["layers"]]
+    return out
+
+
+def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
+            remat: bool = False):
+    """Full-sequence logits (B, S, vocab) and the auxiliary loss (0: no
+    MoE).  ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
+    _check_supported(cfg)
+    x, positions = _embed_positions(params, cfg, tokens)
+    for li, p in enumerate(params["layers"]):
+        kw = dict(use_kernels=use_kernels, li=li)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_layer_fwd, p, cfg, x, positions,
+                           use_reentrant=False, **kw)
+        else:
+            x = _layer_fwd(p, cfg, x, positions, **kw)
+    x = L.norm_fwd(params["final_norm"], cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, use_kernels: bool = False,
+            remat: bool = False):
+    """Mean next-token cross-entropy over the full f32 logits (the
+    reference's ``model.loss_fn``; the stacked model chunks it)."""
+    _check_supported(cfg, batch)
+    tokens = batch["tokens"]
+    logits, aux = forward(params, cfg, tokens, use_kernels=use_kernels,
+                          remat=remat)
+    logits = logits[:, :-1].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
+    return (logz - gold).mean() + aux
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
+            use_kernels: bool = False):
+    """Run a (B, S) prompt; returns the last position's logits (B, vocab)
+    and one fresh cache per layer (``init_cache``'s layout, k/v of length
+    ``cache_len``)."""
+    _check_supported(cfg)
+    x, positions = _embed_positions(params, cfg, tokens)
+    caches = []
+    for li, p in enumerate(params["layers"]):
+        x, c = _layer_fwd(p, cfg, x, positions, return_cache=True,
+                          cache_len=cache_len, use_kernels=use_kernels, li=li)
+        caches.append(c)
+    x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
+    return _unembed(params, cfg, x)[:, 0], caches
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, pos):
+    """One serving step over per-layer ``caches``.  ``token`` (B,) int;
+    ``pos`` the position each row writes, a scalar or (B,).  Writes the
+    caches in place (the reference returns updated copies) and returns
+    (logits (B, vocab), caches)."""
+    _check_supported(cfg)
+    x, positions, pos = _decode_embed(params, cfg, token, pos)
+    out = []
+    for li, (p, c) in enumerate(zip(params["layers"], caches)):
+        x, c = _layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li)
+        out.append(c)
+    x = L.norm_fwd(params["final_norm"], cfg, x)
+    return _unembed(params, cfg, x)[:, 0], out

@@ -128,22 +128,7 @@ def _layers(params, cfg: ModelConfig):
     return _per_layer(params["groups"], cfg)
 
 
-def _sinusoid_positions(cfg: ModelConfig) -> bool:
-    """Whether the embedding gets sinusoidal positions: a model with no
-    rotary positions, unless it is recurrent (RG-LRU or RWKV), as in the
-    reference."""
-    return (cfg.rope_frac == 0.0 and cfg.block != "rwkv"
-            and cfg.recurrent is None)
-
-
-def _embed_positions(params, cfg: ModelConfig, tokens):
-    """Embedded tokens (B, S, D), with the sinusoid added where
-    :func:`_sinusoid_positions` says, and the positions (S,)."""
-    x = M._embed(params, cfg, tokens)
-    S = x.shape[1]
-    if _sinusoid_positions(cfg):
-        x = x + M._sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
-    return x, torch.arange(S, device=x.device)
+_embed_positions = M._embed_positions
 
 
 def hidden_forward(params, cfg: ModelConfig, tokens, *,
@@ -252,23 +237,9 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos):
     writes: a scalar, as in the reference, or (B,) for one per row.
     Writes the new k/v and recurrent states into ``caches`` in place.
     Returns (logits (B, vocab), caches)."""
-    x = M._embed(params, cfg, token[:, None])
-    B = x.shape[0]
-    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
-    if _sinusoid_positions(cfg):
-        D = cfg.d_model
-        dim = torch.arange(0, D, 2, device=x.device).float() / D
-        ang = pos.float()[:, None] / torch.pow(10000.0, dim)
-        pe = torch.zeros((B, D), dtype=x.dtype, device=x.device)
-        pe[:, 0::2] = torch.sin(ang).to(x.dtype)
-        pe[:, 1::2] = torch.cos(ang).to(x.dtype)
-        x = x + pe[:, None]
-    positions = pos[:, None]
-    for li, (p, c) in enumerate(zip(_layers(params, cfg),
-                                    _per_layer(caches, cfg))):
-        x, _ = M._layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li)
-    x = L.norm_fwd(params["final_norm"], cfg, x)
-    return M._unembed(params, cfg, x)[:, 0], caches
+    logits, _ = M.decode_step(M.from_stacked(params, cfg), cfg,
+                              _per_layer(caches, cfg), token, pos)
+    return logits, caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
@@ -276,12 +247,6 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     """Run a (B, S) prompt; returns the last position's logits (B, vocab)
     and fresh caches: the prompt's k/v in caches of length ``cache_len``,
     and each recurrent block's last state."""
-    x, positions = _embed_positions(params, cfg, tokens)
-    per_layer = []
-    for li, p in enumerate(_layers(params, cfg)):
-        x, c = M._layer_fwd(p, cfg, x, positions, return_cache=True,
-                            cache_len=cache_len, use_kernels=use_kernels,
-                            li=li)
-        per_layer.append(c)
-    x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
-    return M._unembed(params, cfg, x)[:, 0], _stack_caches(cfg, per_layer)
+    logits, per_layer = M.prefill(M.from_stacked(params, cfg), cfg, tokens,
+                                  cache_len, use_kernels=use_kernels)
+    return logits, _stack_caches(cfg, per_layer)

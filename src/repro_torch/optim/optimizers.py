@@ -94,6 +94,32 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return init, update
 
 
+def sgd(lr: float | Callable = 1e-2, momentum: float = 0.0):
+    """SGD, with momentum when ``momentum`` is nonzero: the velocity
+    ``momentum * m + g`` is kept in each parameter's dtype, as the
+    reference's ``zeros_like`` moments are, and the update is ``-lr *
+    velocity`` (the gradient itself without momentum)."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params: list) -> OptState:
+        mu = [torch.zeros_like(p) for p in params] if momentum else []
+        return OptState(mu, [], torch.zeros((), dtype=torch.int32))
+
+    @torch.no_grad()
+    def update(grads: list, state: OptState, params: list):
+        step = int(state.count)
+        step_lr = lr_fn(step)
+        if momentum:
+            for m, g in zip(state.mu, grads):
+                m.mul_(momentum).add_(g)
+        vel = state.mu if momentum else grads
+        updates = [v * -step_lr for v in vel]
+        return updates, OptState(state.mu, state.nu,
+                                 torch.tensor(step + 1, dtype=torch.int32))
+
+    return init, update
+
+
 @torch.no_grad()
 def apply_updates(params: list, updates: list) -> list:
     """``p + u`` in f32, cast back to each parameter's dtype, in place."""

@@ -20,14 +20,13 @@ facade that produces one (trace -> profile -> search).  From a plan:
 from .artifact import (ClusterMismatchError, PLAN_VERSION, Plan, PlanError,
                        PlanVersionError, SCHEMA, cluster_fingerprint,
                        cluster_fingerprint_diff, estimator_name)
-from .cache import (PlanCache, ServingPlanNotPorted, cache_features,
-                    compile_key, graph_digest, knob_digest, open_cache,
-                    similarity, warm_start_state)
+from .cache import (PlanCache, cache_features, compile_key, graph_digest,
+                    knob_digest, open_cache, similarity, warm_start_state)
 from .facade import compile, compile_plan, trace_model_graph
 
 __all__ = [
     "ClusterMismatchError", "PLAN_VERSION", "Plan", "PlanCache",
-    "PlanError", "PlanVersionError", "SCHEMA", "ServingPlanNotPorted",
+    "PlanError", "PlanVersionError", "SCHEMA",
     "cache_features", "cluster_fingerprint", "cluster_fingerprint_diff",
     "compile", "compile_key", "compile_plan", "estimator_name",
     "graph_digest", "knob_digest", "open_cache", "similarity",

@@ -41,10 +41,9 @@ Keys, digests and the on-disk layout are the reference's, so for an
 oracle-priced graph one cache directory serves both packages.  Two
 deviations: a non-oracle estimator with a ``fingerprint()`` (the port's
 :class:`~repro_torch.core.gnn.GNNEstimator`) also keys on that digest of
-its config and weights, where the reference keys on the class name alone;
-and a serving-plan entry, which the port cannot load until the serving
-plan is ported, raises :class:`ServingPlanNotPorted` — it is neither a hit
-nor corruption, and no maintenance command drops it.
+its config and weights, where the reference keys on the class name alone.
+Serving plans (:class:`~repro_torch.serving.plan.ServingPlan`) share the
+store with training Plans, as in the reference.
 
 CLI (``python -m repro_torch.plan.cache``): ``ls`` / ``stats`` / ``prune``
 / ``verify`` over a cache directory.  Loads no torch.
@@ -64,7 +63,6 @@ from ..core.mutations import (METHOD_ALGO, METHOD_CHUNK, METHOD_COMM,
                               METHOD_FUSED, METHOD_PP_SPLIT, active_methods)
 from .artifact import Plan, PlanError, cluster_fingerprint, estimator_name
 
-SERVING_SCHEMA = "repro.serving_plan"
 INDEX_NAME = "index.json"
 INDEX_VERSION = 1
 PLAN_SUFFIX = ".plan.json"
@@ -273,6 +271,10 @@ def warm_start_state(plan: Plan, base: FusionGraph, sim) -> FusionGraph | None:
     the same ``set_bucket_*`` mutations the search would use, so the state
     is journal/rolling-hash consistent.  Returns None when the plan does
     not fit the trace — the caller falls back down the ladder."""
+    if not hasattr(plan, "to_graph"):
+        # not a training plan (e.g. a ServingPlan sharing the cache): there
+        # is no fusion state to re-apply, so no warm start
+        return None
     try:
         g = plan.to_graph(base)
     except PlanError:
@@ -295,35 +297,20 @@ def warm_start_state(plan: Plan, base: FusionGraph, sim) -> FusionGraph | None:
     return g
 
 
-class ServingPlanNotPorted(NotImplementedError):
-    """A cache entry is a serving plan (``repro.serving_plan``), which the
-    port cannot load until ``repro/serving/plan.py`` is ported (ROADMAP
-    item 8).  Not a :class:`PlanError`: the entry is sound, so the cache
-    neither counts it stale nor drops it."""
-
-
-def _read_doc(path: str) -> dict:
+def _load_artifact(path: str):
+    """Load a cached artifact by schema: training ``Plan`` (the default)
+    or a serving plan (``repro.serving_plan``).  The schema peek keeps the
+    two families in one store without either loader having to tolerate the
+    other's JSON; any read/parse failure surfaces as ``PlanError`` so the
+    cache's corruption-tolerance contract is unchanged."""
     try:
         with open(path) as f:
-            return json.load(f)
+            doc = json.load(f)
     except (OSError, json.JSONDecodeError, UnicodeDecodeError) as e:
         raise PlanError(f"unreadable plan artifact at {path}: {e}") from e
-
-
-def _is_serving(doc) -> bool:
-    return isinstance(doc, dict) and doc.get("schema") == SERVING_SCHEMA
-
-
-def _load_artifact(path: str) -> Plan:
-    """Load a cached training ``Plan``.  A serving plan raises
-    :class:`ServingPlanNotPorted`; any read/parse failure surfaces as
-    ``PlanError`` so the cache's corruption-tolerance contract is the
-    reference's."""
-    doc = _read_doc(path)
-    if _is_serving(doc):
-        raise ServingPlanNotPorted(
-            f"{path} is a {SERVING_SCHEMA} artifact; the serving plan "
-            f"(repro/serving/plan.py) is not ported to repro_torch yet")
+    if isinstance(doc, dict) and doc.get("schema") == "repro.serving_plan":
+        from ..serving.plan import ServingPlan  # import-light, no torch
+        return ServingPlan.from_dict(doc)
     return Plan.from_dict(doc, source=path)
 
 
@@ -392,28 +379,16 @@ class PlanCache:
             if not name.endswith(PLAN_SUFFIX):
                 continue
             key = name[:-len(PLAN_SUFFIX)]
-            path = os.path.join(self.root, name)
             try:
-                doc = _read_doc(path)
-                if _is_serving(doc):
-                    # kept in the index though this package cannot load
-                    # it; its display time is seconds per decoded token,
-                    # as the reference's ServingPlan reports it
-                    tps = doc.get("predicted_tokens_per_s") or 0.0
-                    predicted = 1.0 / tps if tps > 0.0 else None
-                    prov = doc.get("provenance") or {}
-                else:
-                    plan = Plan.from_dict(doc, source=path)
-                    predicted = plan.predicted_iteration_time
-                    prov = plan.provenance
+                plan = _load_artifact(os.path.join(self.root, name))
             except PlanError:
                 continue
             entries[key] = {
                 "key": key,
                 "created": 0.0,
-                "predicted_s": predicted,
+                "predicted_s": plan.predicted_iteration_time,
                 "rebuilt": True,
-                **{k: v for k, v in prov.get(
+                **{k: v for k, v in plan.provenance.get(
                     "cache_features", {}).items()},
             }
         return {"version": INDEX_VERSION, "entries": entries}
@@ -428,8 +403,7 @@ class PlanCache:
     def get(self, key: str) -> Plan | None:
         """Exact-key lookup.  A present-but-unreadable entry (torn write,
         foreign schema, truncated vectors) is counted ``stale`` and
-        reported as a miss; a serving-plan entry raises
-        :class:`ServingPlanNotPorted`."""
+        reported as a miss."""
         path = self._plan_path(key)
         if not os.path.exists(path):
             self.stats["misses"] += 1
@@ -499,8 +473,6 @@ class PlanCache:
                 continue
             try:
                 plan = _load_artifact(self._plan_path(key))
-            except ServingPlanNotPorted:
-                continue  # no fusion state to warm-start from
             except PlanError:
                 self.stats["stale"] += 1
                 continue
@@ -513,16 +485,13 @@ class PlanCache:
     def verify(self) -> dict:
         """Re-load every indexed entry; report (and optionally let
         ``prune`` drop) the corrupt ones, plus plan files the index does
-        not know about.  Serving-plan entries, which this package cannot
-        load, are listed apart and kept."""
+        not know about."""
         index = self._read_index()
-        ok, corrupt, serving = [], [], []
+        ok, corrupt = [], []
         for key in sorted(index["entries"]):
             try:
                 _load_artifact(self._plan_path(key))
                 ok.append(key)
-            except ServingPlanNotPorted:
-                serving.append(key)
             except PlanError as e:
                 corrupt.append({"key": key, "error": str(e)})
         known = {k + PLAN_SUFFIX for k in index["entries"]}
@@ -530,7 +499,7 @@ class PlanCache:
             n for n in os.listdir(self.root)
             if n.endswith(PLAN_SUFFIX) and n not in known)
         return {"entries": len(index["entries"]), "ok": len(ok),
-                "corrupt": corrupt, "orphans": orphans, "serving": serving}
+                "corrupt": corrupt, "orphans": orphans}
 
     def prune(self, *, max_entries: int | None = None,
               max_age_s: float | None = None,

@@ -10,8 +10,8 @@ into a :class:`~repro_torch.plan.artifact.Plan`.
 Two modes:
 
 * ``compile("tinyllama-1.1b", cluster="h100_superpod")`` — trace a
-  config's training step (on meta tensors, see :func:`trace_model_graph`)
-  and search it.
+  config's training step (on meta tensors, see :func:`trace_model_graph`;
+  ``model="layers"`` the per-layer model) and search it.
 * ``compile(graph=g0, cluster=spec, ...)`` — search a pre-traced graph.
 
 Every default ``hw=`` is the H100 (``H100_SXM``).  ``cache=`` replays or
@@ -31,27 +31,44 @@ from .artifact import Plan
 
 
 def trace_model_graph(cfg, *, batch: int = 8, seq: int = 64,
-                      reduced: bool = True, hw: Hardware = H100_SXM):
+                      model: str = "stacked", reduced: bool = True,
+                      n_layers: int | None = None, hw: Hardware = H100_SXM):
     """Trace + profile one training step of a model config (the Search
-    Phase's input): the stacked model's loss and gradients, without remat,
-    on meta parameters and a meta ``(batch, seq)`` int64 token batch, so it
-    spends no memory and no device time at any width.  Imports torch
-    lazily: plan/artifact consumers stay light."""
+    Phase's input): the model's loss and gradients, without remat, on meta
+    parameters and a meta ``(batch, seq)`` int64 token batch, so it spends
+    no memory and no device time at any width.  ``model="stacked"`` is the
+    stacked-layer model, whose layer loops and chunked cross-entropy the
+    tracer collapses into one prim each; ``model="layers"`` the per-layer
+    model, whose trace shows every layer's forward and backward.
+    ``n_layers`` sets the per-layer model's depth (a config without
+    ``recurrent`` only), as in the reference.  Imports torch lazily:
+    plan/artifact consumers stay light."""
+    import dataclasses as _dc
+
     import torch
 
     from ..configs import get_config
     from ..core.costs import profile_graph
     from ..core.trace import trace_grad_graph
-    from ..models import stacked as ST
 
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     if reduced:
         cfg = cfg.reduced()
+    if model == "stacked":
+        from ..models import stacked as MM
+    elif model == "layers":
+        from ..models import model as MM
+
+        if n_layers is not None and cfg.recurrent is None:
+            cfg = _dc.replace(cfg, n_layers=n_layers)
+    else:
+        raise ValueError(f"unknown model variant {model!r} "
+                         f"(expected 'stacked' or 'layers')")
     with torch.device("meta"):
-        params = ST.init_params(cfg, device="meta")
+        params = MM.init_params(cfg, device="meta")
     tokens = torch.zeros((batch, seq), dtype=torch.int64, device="meta")
-    g = trace_grad_graph(lambda p, bt: ST.loss_fn(p, cfg, bt), params,
+    g = trace_grad_graph(lambda p, bt: MM.loss_fn(p, cfg, bt), params,
                          {"tokens": tokens})
     return profile_graph(g, hw)
 
@@ -62,7 +79,8 @@ def compile_plan(cfg=None, *, cluster=None, streams: int = 1,
                  overlap_discount: float | None = None,
                  graph=None, estimator=None, hw: Hardware = H100_SXM,
                  n_devices: int = 256,
-                 batch: int = 8, seq: int = 64, reduced: bool = True,
+                 batch: int = 8, seq: int = 64, model: str = "stacked",
+                 reduced: bool = True, n_layers: int | None = None,
                  alpha: float = 1.05, beta: int = 10,
                  unchanged_limit: int = 200, max_steps: int | None = None,
                  methods=None, seed: int = 0,
@@ -108,8 +126,8 @@ def compile_plan(cfg=None, *, cluster=None, streams: int = 1,
         if cfg is None:
             raise ValueError("compile() needs a config (cfg=) or a "
                              "pre-traced graph (graph=)")
-        graph = trace_model_graph(cfg, batch=batch, seq=seq,
-                                  reduced=reduced, hw=hw)
+        graph = trace_model_graph(cfg, batch=batch, seq=seq, model=model,
+                                  reduced=reduced, n_layers=n_layers, hw=hw)
     sim = Simulator(estimator=estimator, hw=hw, n_devices=n_devices,
                     cluster=cluster, streams=streams,
                     background=tuple(background), pipeline=pipeline,

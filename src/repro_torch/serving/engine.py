@@ -83,9 +83,9 @@ class ServeEngine:
                  sampler: Optional[Callable] = None,
                  clock: Callable[[], float] = time.monotonic,
                  plan=None, decode_batch: Optional[int] = None):
-        # a serving plan (duck-typed: slots, cache_len, decode_batch) sets
-        # the slot and batch choices; explicit kwargs still win over the
-        # plan's fields
+        # a serving plan (repro_torch.serving.plan.ServingPlan, duck-typed)
+        # sets the slot and batch choices and the KV layout; explicit
+        # kwargs still win over the plan's fields
         if max_slots is None:
             max_slots = int(plan.slots) if plan is not None else 8
         if cache_len is None:
@@ -97,6 +97,9 @@ class ServeEngine:
                              f"window {cfg.window}: a windowed model is "
                              f"served at cache_len <= window")
         self.plan = plan
+        # one card holds the whole cache: the layout is recorded, as the
+        # reference records it, and changes nothing here
+        self.kv_layout = getattr(plan, "kv_layout", "replicated")
         self.params = params
         self.cfg = cfg
         self.max_slots = max_slots

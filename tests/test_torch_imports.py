@@ -1,6 +1,7 @@
 """``repro_torch`` and every one of its modules import with ``jax`` and the
 reference package ``repro`` blocked, as does ``chip_smoke.py``: the port
-keeps its own copies of what it needs from the reference."""
+keeps its own copies of what it needs from the reference.  Among them the
+serving plan and the examples."""
 import os
 import subprocess
 import sys
@@ -31,6 +32,9 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
+for name in ("repro_torch.serving.plan", "repro_torch.examples.quickstart",
+             "repro_torch.examples.serve_with_plan"):
+    assert name in names, name
 print(len(names))
 """
 

@@ -2,8 +2,8 @@
 reference's, on the CPU: digests and keys equal for oracle-priced graphs,
 exact hits bit-identical to cold compiles (also on ROADMAP C1's cache
 seeds, where the reference's are not), warm starts, one cache directory
-read by both packages, the CLI, and a serving-plan entry that the port
-cannot load but neither counts corrupt nor drops.
+read by both packages, the CLI, and a serving-plan entry written by the
+reference that the port loads as its own ``ServingPlan``.
 
 Every compile prices under ``TPU_V5E`` in both packages (the port's
 default ``hw`` is ``H100_SXM``).
@@ -208,41 +208,43 @@ def test_truncated_entry_is_a_miss_and_index_rebuilds(tmp_path):
 
 
 def test_serving_entry_raises_and_is_kept(tmp_path):
-    """A serving-plan entry (written by the reference's serving search,
-    which the port has not ported) raises its own error on ``get``; it is
-    not corruption, so ``verify`` lists it apart and ``prune`` keeps it,
-    and the warm-start ladder skips it."""
+    """A serving-plan entry (the reference's serving search wrote it, as
+    ``repro.serving.plan`` does into a shared cache) loads as the port's
+    ``ServingPlan``, raising nothing: ``verify`` counts it sound,
+    ``prune`` keeps it, the warm-start ladder finds no fusion state in it,
+    and an index rebuilt from the files keeps it with its display time,
+    seconds per decoded token."""
+    from repro.serving import plan as RSP
+    from repro.serving.workload import Workload as RWorkload
+    from repro_torch.serving.plan import ServingPlan
+
     d = str(tmp_path)
     cache = PP.PlanCache(d)
     g0 = port_chain()
     sim = PCO.Simulator(cluster=PC.get_preset(SPEC), streams=4)
     cache.put("train", PP.Plan.from_graph(mutated(PCO, g0, 0, 6), sim=sim),
               PCACHE.cache_features(g0, sim, arch="chain"))
-    doc = {"schema": "repro.serving_plan", "version": 1,
-           "predicted_tokens_per_s": 250.0,
-           "provenance": {"cache_features": {"arch": "chain"}}}
-    with open(cache._plan_path("serve"), "w") as f:
-        json.dump(doc, f)
-    index = json.load(open(cache._index_path()))
-    index["entries"]["serve"] = {"key": "serve", "created": 1.0,
-                                 "arch": "chain"}
-    json.dump(index, open(cache._index_path(), "w"))
+    served = RSP.compile_serving("tinyllama-1.1b", cluster="tpu_v5e_pod_16",
+                                 workload=RWorkload(n_requests=8, seed=1),
+                                 unchanged_limit=5, max_steps=5)
+    RCACHE.PlanCache(d).put("serve", served, {"arch": "chain"})
 
-    with pytest.raises(PP.ServingPlanNotPorted, match="serving plan"):
-        cache.get("serve")
-    assert not isinstance(PP.ServingPlanNotPorted("x"), PP.PlanError)
+    got = cache.get("serve")
+    assert isinstance(got, ServingPlan)
+    assert got.fingerprint() == served.fingerprint()
+    assert got.predicted_tokens_per_s == served.predicted_tokens_per_s
     assert cache.stats["stale"] == 0
     rep = cache.verify()
-    assert rep["serving"] == ["serve"] and rep["corrupt"] == []
+    assert rep["ok"] == 2 and rep["corrupt"] == []
     assert cache.prune()["dropped"] == []
     assert os.path.exists(cache._plan_path("serve"))
-    near = cache.nearest(PCACHE.cache_features(g0, sim, arch="chain"))
-    assert [e["key"] for _, e, _ in near] == ["train"]
+    assert PCACHE.warm_start_state(got, g0, sim) is None
     # an index rebuilt from the files keeps it too
     os.remove(cache._index_path())
     rebuilt = {e["key"]: e for e in PP.PlanCache(d).entries()}
     assert sorted(rebuilt) == ["serve", "train"]
-    assert rebuilt["serve"]["predicted_s"] == 1.0 / 250.0
+    assert rebuilt["serve"]["predicted_s"] == \
+        1.0 / served.predicted_tokens_per_s
     assert rebuilt["serve"]["arch"] == "chain"
 
 

@@ -1,8 +1,10 @@
 """The port's tracer against the reference's, on the CPU: ``make_fx`` of
 the stacked model's loss and gradients on meta tensors, turned into a
 ``FusionGraph``, held to the reference's ``trace_model_graph`` on reduced
-tinyllama (2 layers) and a 3-layer variant; its size at full width; the
-search end to end; and the launcher's ``--strategy auto``."""
+tinyllama (2 layers) and a 3-layer variant; the per-layer model's trace
+(``model="layers"``) against the reference's at 2 and 3 layers and the
+facade's search of it at 6; its size at full width; the search end to
+end; and the launcher's ``--strategy auto``."""
 import dataclasses
 import math
 
@@ -189,3 +191,51 @@ def test_launcher_searches_and_enacts(tmp_path):
     assert RP.Plan.load(path).buckets == plan.buckets
     with pytest.raises(SystemExit):
         TRAIN.parse_args(["--plan-out", path])      # needs --strategy auto
+
+
+@pytest.fixture(scope="module", params=[2, 3])
+def traced_layers(request):
+    kw = dict(model="layers", n_layers=request.param)
+    return (request.param, RP.trace_model_graph("tinyllama-1.1b", **kw),
+            PP.trace_model_graph("tinyllama-1.1b", **kw))
+
+
+def _dots(g, dot) -> float:
+    return sum(p.flops for p in g.prims if p.category == dot)
+
+
+def test_per_layer_trace_matches_reference(traced_layers):
+    """The per-layer model has no loop to collapse: no OPAQUE prim, every
+    layer's gradients marked as the reference marks them, and the DOT
+    FLOPs the reference's."""
+    from repro.core import DOT as RDOT
+
+    n_layers, ref, port = traced_layers
+    assert not [p for p in port.prims if p.category == OPAQUE]
+    assert len(port.grad_prim) == len(ref.grad_prim) == 3 + 9 * n_layers
+    assert _markers(port) == _markers(ref)
+    assert math.isclose(_dots(port, DOT), _dots(ref, RDOT), rel_tol=1e-12)
+    assert sorted(port.topo_groups()) == sorted(port.groups)
+
+
+def test_unknown_model_variant_raises():
+    with pytest.raises(ValueError, match="bogus"):
+        PP.trace_model_graph("tinyllama-1.1b", model="bogus")
+
+
+def test_compile_searches_the_per_layer_model():
+    """``compile(model="layers", n_layers=6)`` traces the per-layer model
+    at 6 layers and searches it; its graph's DOT FLOPs are the
+    reference's."""
+    from repro.core import DOT as RDOT
+
+    kw = dict(model="layers", n_layers=6)
+    plan = PP.compile("tinyllama-1.1b", cluster="h100_superpod",
+                      unchanged_limit=10, max_steps=10, **kw)
+    assert plan.provenance["grad_tensors"] == 57
+    assert sorted(i for b in plan.buckets for i in b) == list(range(57))
+    g = PP.trace_model_graph("tinyllama-1.1b", **kw)
+    assert plan.simulator().cost(plan.to_graph(g)) == \
+        plan.provenance["best_cost"]
+    ref = RP.trace_model_graph("tinyllama-1.1b", **kw)
+    assert math.isclose(_dots(g, DOT), _dots(ref, RDOT), rel_tol=1e-12)
