@@ -152,7 +152,31 @@ Phases, each of which stops the run with a nonzero exit on failure:
     35 requests as (l) does (every request in full, flash once per layer
     per prefill on the tensor cores, the engine's ``kv_layout`` the
     plan's), its metrics printed beside (l)'s and the plan's prediction.
-(t) a JSON line of every kernel's numbers, then the device line last.
+(t) deepseek-v2-lite-16b at full width (27 layers, d_model 2048, MLA with a
+    512-wide latent, 64 routed experts top-6 and 2 shared; 15.71B
+    parameters drawn on the card, expert stacks cast one at a time): the
+    reduced model's engine on the card against the CPU; per-row routing in
+    the engine: the reduced model (f32, capacity 1.0, 16 slots) gives the
+    greedy tokens of a batch-1 prefill and ``decode_step`` loop, and at full
+    width the engine's first decode step over 4 of the cell's requests picks
+    each row's top-6 experts in every MoE layer as a batch-1 step does (a
+    swap only between experts whose router logits lie closer than the two
+    steps' router logits differ), its logits within
+    ``DS_ROW_LOGIT_TOL``; then (l)'s traffic served at 8 slots and cache
+    4096 (every request in full, no kernel launched: MLA and the experts run
+    no kernel), a decode step traced; loss and gradients at a cut depth of
+    4 layers (1 dense, 3 MoE) at batch 1 x 2048, finite, the aux loss
+    printed; the full 27-layer step at batch 4 x 2048 traced on meta
+    tensors and searched on ``h100_superpod`` (prims, DOT FLOPs beside the
+    analytic model's, buckets, seconds; not enacted: its f32 AdamW moments
+    alone would take 126 GB).
+(u) the int8 KV cache on full tinyllama-1.1b (weights drawn on the card): 64
+    decode steps from ``init_cache`` (cache 4096) at 8 and at 64 rows, with
+    the bf16 cache and then the int8 cache on the same tokens: ms per step
+    (host clock, synced), peak memory, the caches' bytes and the largest
+    logit difference of the int8 run from the bf16 run.
+(v) the total seconds and the card's name and power limit again, a JSON
+    line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
@@ -183,7 +207,7 @@ from repro_torch import plan as RP  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
 from repro_torch.cluster import get_preset  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (OPAQUE, OracleEstimator,  # noqa: E402
+from repro_torch.core import (DOT, OPAQUE, OracleEstimator,  # noqa: E402
                               Simulator, evaluate_baselines, profile_graph)
 from repro_torch.core import gnn as GNN  # noqa: E402
 from repro_torch.core import profile as PROF  # noqa: E402
@@ -191,6 +215,7 @@ from repro_torch.core.hw import H100_SXM  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import stacked as ST  # noqa: E402
 from repro_torch.optim import adamw, apply_updates  # noqa: E402
@@ -209,6 +234,21 @@ RG_ARCH = "recurrentgemma-9b"
 RG_SEQS = (1, 129, 1024, 1984, 2048)      # RG-LRU and flash check lengths
 RWKV_ARCH = "rwkv6-3b"
 WKV_SEQS = (1, 129, 2048)                 # WKV-6 check lengths
+DS_ARCH = "deepseek-v2-lite-16b"
+# the deepseek phase: the cut depth and sequence of its loss-and-gradient
+# step, the requests of the full-width routing check (the cell's shortest
+# prompts), and the largest |logit| difference allowed between the engine's
+# first decode step (8 rows, M = 8 GEMMs) and a batch-1 decode_step (M = 1)
+# on the same cache, bf16 weights: the two round apart in bf16 at every
+# GEMM of 27 layers, as the flash and dense prefills of tinyllama do
+# (TINYLLAMA.logit_tol); a wrong expert, latent row or position moves the
+# logits by their own scale
+DS_LOSS_LAYERS, DS_LOSS_SEQ = 4, 2048
+DS_ROUTE_REQUESTS = 4
+DS_ROW_LOGIT_TOL = 0.25
+# the int8 phase: decode steps and the row counts (the engine's 8 slots and
+# the serving plan's 64)
+INT8_STEPS, INT8_ROWS = 64, (8, 64)
 # the unfused-bucket phase: batch x seq, steps of the launcher's run, steps
 # of the bitwise check, and each bucket's (fused, kind, chunks) in turn
 B1_BATCH, B1_SEQ, B1_STEPS, B1_CHECK_STEPS = 2, 512, 3, 2
@@ -339,6 +379,10 @@ RWKV6 = Serving(
     reduced_lens=(1, 7, 40, 64, 65),
     workload=TINYLLAMA.workload,
     extra_prompts=TINYLLAMA.extra_prompts)
+DEEPSEEK = Serving(
+    DS_ARCH, 4096, (), logit_tol=DS_ROW_LOGIT_TOL, cache_tol=None,
+    state_tol=None, reduced_lens=(1, 7, 40, 64, 65),
+    workload=TINYLLAMA.workload, extra_prompts=TINYLLAMA.extra_prompts)
 # Kernel against kernel-free prefill with f32 weights, every cell: the
 # largest |difference| allowed in logits and in every cache and state entry.
 # Only the order of f32 sums differs (and flash's f32 probabilities), so a
@@ -435,12 +479,16 @@ def meta_params(cfg):
         return ST.init_params(cfg, device="meta")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_card_and_build() -> None:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
     print("card (nvidia-smi name, power.limit):")
-    print(smi[0])
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1468,11 +1516,9 @@ def _engine_requests(vocab: int, seed: int, lens, new: int) -> list:
         np.int32), max_new_tokens=new) for i, n in enumerate(lens)]
 
 
-def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
-    """The serving path's results against references: the engine on the
-    card against the engine on the CPU (the reduced model, f32), and full
-    ``prefill`` with the kernels against ``prefill`` without them, both
-    held against a run with f32 weights."""
+def phase_reduced_engine(dev, cfg, cell: Serving) -> None:
+    """The reduced model (f32) served on the card against the same
+    requests served on the CPU: equal greedy tokens."""
     rcfg = cfg.reduced()
     rcache = min(96, rcfg.window or 96)
     cpu_params = ST.init_params(rcfg, seed=0, device="cpu")
@@ -1490,6 +1536,14 @@ def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
     print(f"reduced {cell.arch} engine, {n} requests over 3 slots, cache "
           f"{rcache}: cuda greedy tokens equal cpu's "
           f"({sum(map(len, outs['cpu'].values()))} tokens)")
+
+
+def phase_serving_checks(dev, params, cfg, cell: Serving) -> None:
+    """The serving path's results against references: the engine on the
+    card against the engine on the CPU (the reduced model, f32), and full
+    ``prefill`` with the kernels against ``prefill`` without them, both
+    held against a run with f32 weights."""
+    phase_reduced_engine(dev, cfg, cell)
 
     def diffs(a, b) -> dict:
         """Largest |difference| of the k/v leaves and of the recurrent
@@ -1649,9 +1703,11 @@ def phase_decode_trace(dev, params, cfg, cache_len: int,
     pos = torch.arange(SLOTS, device=dev) * 256 + 64
 
     def run(n):
+        # an MoE model's experts route each row alone, as in the engine
         with torch.no_grad():
             for _ in range(n):
-                ST.decode_step(params, cfg, caches, tok, pos)
+                ST.decode_step(params, cfg, caches, tok, pos,
+                               route_rows=cfg.moe is not None)
         torch.cuda.synchronize()
 
     run(3)
@@ -1679,7 +1735,9 @@ def phase_decode_trace(dev, params, cfg, cache_len: int,
           f"step (host "
           f"clock, 10 steps, synced); traced {steps} steps: device busy "
           f"{busy / 1e3 / steps:.2f} ms of {wall / 1e3 / steps:.2f} ms per "
-          f"step (first to last device activity), idle {idle}")
+          f"step (first to last device activity), idle {idle}, "
+          f"{len(kern) // steps} device activities (kernels, copies, "
+          f"fills) per step")
     for t, n, k in dev_rows[:6]:
         print(f"  device {t / 1e3 / steps:7.3f} ms/step  {n // steps:5d} "
               f"calls/step  {k[:90]}")
@@ -1755,7 +1813,9 @@ def phase_serving(dev, params, cfg, cell: Serving, plan=None) -> tuple:
     # RWKV layer; nothing else launches a kernel
     kinds = [cfg.block_kind(li) for li in range(cfg.n_layers)]
     want = {name: 0 for name in REPLACES}
-    want["flash_attention"] = kinds.count("attn") * len(reqs)
+    # MLA never takes the flash kernel, as in the reference
+    want["flash_attention"] = (0 if cfg.block == "mla"
+                               else kinds.count("attn") * len(reqs))
     want["rglru_scan"] = kinds.count("rec") * len(reqs)
     want["rwkv6_wkv"] = kinds.count("rwkv") * len(reqs)
     if launches != want:
@@ -2020,6 +2080,289 @@ def phase_serving_plan(dev, params, cfg, default: dict) -> tuple:
     return launches
 
 
+def _recording_routes(record: list):
+    """``L.moe_fwd`` that also appends each call's router logits (f32) and
+    top-k experts to ``record``, computed from its inputs as ``moe_fwd``
+    computes them (the same ops on the same tensors)."""
+    orig = L.moe_fwd
+
+    def moe_fwd(p, cfg, x, *, route_rows=False):
+        G = x.shape[0] if route_rows else 1
+        logits = (x.reshape(G, -1, x.shape[-1])
+                  @ p["router"].to(x.dtype)).float()
+        top = torch.sort(torch.softmax(logits, -1), dim=-1,
+                         descending=True, stable=True)[1][..., :cfg.moe.top_k]
+        record.append((logits, top))
+        return orig(p, cfg, x, route_rows=route_rows)
+    return orig, moe_fwd
+
+
+def phase_route_rows_reduced(dev, cfg) -> None:
+    """Per-row routing on the card, reduced model in f32 with capacity
+    1.0 (where 16 rows routed together would drop token copies): the
+    engine's greedy tokens over 16 slots equal a batch-1 prefill and
+    ``decode_step`` loop per request."""
+    rcfg = cfg.reduced()
+    rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+        rcfg.moe, capacity_factor=1.0))
+    params = T.map(lambda a: a.to(dev),
+                   ST.init_params(rcfg, seed=0, device="cpu"))
+    lens, new, cache = (1, 7, 30, 12, 5, 21) * 3, 8, 64
+    eng = ENG.ServeEngine(params, rcfg, max_slots=16, cache_len=cache)
+    for r in _engine_requests(rcfg.vocab, 5, lens, new):
+        eng.submit(r)
+    got = {r.rid: r.output for r in eng.run_to_completion()}
+    for r in _engine_requests(rcfg.vocab, 5, lens, new):
+        with torch.no_grad():
+            lg, c = ST.prefill(params, rcfg, torch.from_numpy(
+                r.prompt.astype(np.int64)).to(dev)[None], cache)
+            out = [int(lg.argmax())]
+            for t in range(new - 1):
+                lg, c = ST.decode_step(
+                    params, rcfg, c, torch.tensor([out[-1]], device=dev),
+                    len(r.prompt) + t)
+                out.append(int(lg.argmax()))
+        if got.get(r.rid) != out:
+            raise AssertionError(f"reduced {DS_ARCH} engine, request "
+                                 f"{r.rid}: {got.get(r.rid)}, the batch-1 "
+                                 f"loop {out}")
+    print(f"reduced {DS_ARCH} (f32, capacity 1.0) engine over 16 slots, "
+          f"{len(lens)} requests: greedy tokens equal a batch-1 prefill and "
+          f"decode_step loop per request ({len(lens) * new} tokens)")
+
+
+def phase_route_rows_full(dev, params, cfg) -> None:
+    """The engine's first decode step at full width against batch-1
+    ``decode_step`` calls on the same caches: each row's top-k experts in
+    every MoE layer, and its logits within ``DS_ROW_LOGIT_TOL``.  An
+    expert set may differ only by a swap between experts whose router
+    logits, on the batch-1 step, lie closer than the two steps' router
+    logits for that row differ (a near tie that the two GEMM shapes' bf16
+    rounding decides)."""
+    reqs = sorted(_cell_requests(cfg, DEEPSEEK),
+                  key=lambda r: len(r.prompt))[:DS_ROUTE_REQUESTS]
+    eng = ENG.ServeEngine(params, cfg, max_slots=SLOTS,
+                          cache_len=DEEPSEEK.cache_len)
+    for r in reqs:
+        eng.submit(r)
+    eng._admit()
+    rows = [s for s, r in enumerate(eng.slot_req) if r is not None]
+    snap = {s: (T.map(lambda a: a[:, s:s + 1].clone(), eng.caches),
+                int(eng.slot_last[s]), int(eng.slot_pos[s])) for s in rows}
+    seen = []
+    decode = eng._decode
+    eng._decode = lambda *a: (seen.append(decode(*a)), seen[-1])[1]
+    record: list = []
+    orig, L.moe_fwd = _recording_routes(record)
+    try:
+        eng.step()
+        engine_routes = list(record)
+        worst, swaps, same = 0.0, 0, 0
+        for s in rows:
+            caches, tok, pos = snap[s]
+            record.clear()
+            with torch.no_grad():
+                lg, _ = ST.decode_step(params, cfg, caches,
+                                       torch.tensor([tok], device=dev), pos)
+            diff = float((lg[0].float() - seen[0][s].float()).abs().max())
+            worst = max(worst, diff)
+            for (le, te), (l1, t1) in zip(engine_routes, record):
+                a, b = set(te[s, 0].tolist()), set(t1[0, 0].tolist())
+                if a == b:
+                    same += 1
+                    continue
+                drift = float((le[s, 0] - l1[0, 0]).abs().max())
+                row = l1[0, 0]
+                kth = float(row[t1[0, 0, -1]])
+                gap = max(abs(float(row[e]) - kth) for e in a ^ b)
+                if gap > drift:
+                    raise AssertionError(
+                        f"{DS_ARCH} slot {s}: engine experts {sorted(a)}, "
+                        f"batch-1 {sorted(b)}; logit gap {gap} > the steps' "
+                        f"router difference {drift}")
+                swaps += 1
+    finally:
+        L.moe_fwd = orig
+    layers = cfg.n_layers - cfg.moe.first_dense_layers
+    if len(engine_routes) != layers or same + swaps != layers * len(rows):
+        raise AssertionError(f"{DS_ARCH}: {len(engine_routes)} routed "
+                             f"layers recorded, want {layers}")
+    print(f"{DS_ARCH} engine's first decode step ({SLOTS} rows, prompts "
+          f"{[len(r.prompt) for r in reqs]}) against batch-1 decode_step: "
+          f"top-{cfg.moe.top_k} experts equal in {same} of "
+          f"{layers * len(rows)} (row, MoE layer) pairs, {swaps} near-tie "
+          f"swaps; max |logit diff| {worst:.4e} (tolerance "
+          f"{DS_ROW_LOGIT_TOL}, logits up to "
+          f"{float(seen[0].float().abs().max()):.3f})")
+    if not worst <= DS_ROW_LOGIT_TOL:
+        raise AssertionError(f"{DS_ARCH}: engine logits differ from a "
+                             f"batch-1 step by {worst} > {DS_ROW_LOGIT_TOL}")
+    del eng, snap
+    torch.cuda.empty_cache()
+
+
+def phase_deepseek_loss(dev, params, cfg) -> None:
+    """Loss and gradients of every leaf at a cut depth of
+    ``DS_LOSS_LAYERS`` (the dense layer and the first MoE layers, copied
+    out of the full stack) at batch 1 x ``DS_LOSS_SEQ``, remat: finite,
+    with the aux loss printed."""
+    cut = DS_LOSS_LAYERS - cfg.moe.first_dense_layers
+    cfg4 = dataclasses.replace(cfg, n_layers=DS_LOSS_LAYERS)
+    p4 = dict(params, groups=[params["groups"][0],
+                              T.map(lambda a: a[:cut].clone(),
+                                    params["groups"][1])])
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, DS_LOSS_SEQ),
+                                     device=dev, generator=gen)}
+    leaves = ST.leaves(p4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, secs = _loss_and_grads(
+        lambda: ST.loss_fn(p4, cfg4, batch, remat=True), leaves)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = ST.hidden_forward(p4, cfg4, batch["tokens"])
+    norm = _global_norm(grads)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    print(f"{DS_ARCH} loss and gradients at {DS_LOSS_LAYERS} layers (1 "
+          f"dense, {cut} MoE; batch 1 x {DS_LOSS_SEQ}, remat, {len(leaves)} "
+          f"leaves, {sum(p.numel() for p in leaves) / 1e9:.2f}B "
+          f"parameters): loss {loss:.6f} (aux {float(aux):.6f}), gradient "
+          f"norm {norm:.6f}, {secs * 1e3:.1f} ms (one step, host clock, "
+          f"synced), peak {peak / 2**30:.2f} GiB")
+    if not (math.isfinite(loss) and math.isfinite(norm) and finite
+            and float(aux) > 0):
+        raise AssertionError(f"{DS_ARCH} loss {loss}, aux {float(aux)}, "
+                             f"gradient norm {norm}, all finite {finite}")
+    del p4, grads, leaves
+    torch.cuda.empty_cache()
+
+
+def phase_deepseek_search(cfg) -> None:
+    """The full step traced on meta tensors (``trace_model_graph``) at
+    ``BATCH`` x ``SEQ`` and searched for ``SEARCH_CLUSTER`` under
+    ``H100_SXM``: prims, the DOT FLOPs of the traced graph (read from the
+    fx graph before the scans collapse) beside the analytic model's
+    forward-and-backward FLOPs, the Plan's buckets, the seconds."""
+    from collections import Counter
+
+    from repro_torch.core import analytic as AN
+    from repro_torch.core import trace as TRACE
+
+    graphs: list = []
+    orig = TRACE.graph_from_fx
+    TRACE.graph_from_fx = lambda gm, *a: (graphs.append(gm), orig(gm, *a))[1]
+    try:
+        t0 = time.perf_counter()
+        g = RP.trace_model_graph(cfg, batch=BATCH, seq=SEQ, reduced=False,
+                                 hw=H100_SXM)
+        trace_s = time.perf_counter() - t0
+    finally:
+        TRACE.graph_from_fx = orig
+    dots = sum(TRACE._dot_flops(n) for n in graphs[0].graph.nodes
+               if n.op == "call_function" and TRACE._classify(n) == DOT)
+    fwd = AN._per_token_forward_flops(cfg, SEQ, decode=False) * BATCH * SEQ
+    n_leaves = len(ST.leaves(meta_params(cfg)))
+    plan = RP.compile(graph=g, cluster=SEARCH_CLUSTER, hw=H100_SXM)
+    search_s = plan.provenance["facade_wall_time"]
+    if (len(g.grad_prim) != n_leaves
+            or sorted(i for b in plan.buckets for i in b)
+            != list(range(n_leaves))):
+        raise AssertionError(f"{DS_ARCH} trace: {len(g.grad_prim)} gradient "
+                             f"leaves, want {n_leaves} covered once")
+    print(f"{DS_ARCH} full step (batch {BATCH} x seq {SEQ}, {cfg.n_layers} "
+          f"layers) on meta tensors: {len(g.prims)} prims "
+          f"{dict(Counter(p.category for p in g.prims))}, {n_leaves} "
+          f"gradient leaves, DOT FLOPs {dots:.4e} (the analytic model's "
+          f"forward x 3: {3 * fwd:.4e}, causal attention at S/2), trace "
+          f"{trace_s:.2f} s; search on {SEARCH_CLUSTER} {search_s:.2f} s "
+          f"({plan.provenance['steps']} steps, "
+          f"{plan.provenance['simulations']} simulations), simulated "
+          f"{plan.provenance['initial_cost'] * 1e3:.3f} -> "
+          f"{plan.provenance['best_cost'] * 1e3:.3f} ms; "
+          f"{_describe_buckets(plan)}; not enacted (f32 AdamW moments alone "
+          f"{2 * 4 * cfg.param_count() / 1e9:.0f} GB)")
+
+
+def phase_deepseek(dev) -> dict:
+    """Phase (t): full deepseek-v2-lite-16b on the card.  Returns the
+    serving run's launches."""
+    cfg = get_config(DS_ARCH)
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in ST.leaves(params))
+    print(f"{DS_ARCH}: {n / 1e9:.4f}B parameters in "
+          f"{len(ST.leaves(params))} leaves ({cfg.param_count() / 1e9:.4f}B "
+          f"by param_count(), which leaves out the norms; "
+          f"{cfg.active_param_count() / 1e9:.4f}B active) drawn on the card "
+          f"in {time.time() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_reduced_engine(dev, cfg, DEEPSEEK)
+    phase_route_rows_reduced(dev, cfg)
+    phase_route_rows_full(dev, params, cfg)
+    served, _, _ = phase_serving(dev, params, cfg, DEEPSEEK)
+    phase_decode_trace(dev, params, cfg, DEEPSEEK.cache_len)
+    phase_deepseek_loss(dev, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    phase_deepseek_search(cfg)
+    return served
+
+
+def phase_int8(dev) -> None:
+    """Phase (u): the int8 KV cache against the bf16 one on full
+    tinyllama-1.1b, ``INT8_STEPS`` decode steps from ``init_cache`` at each
+    of ``INT8_ROWS`` rows (cache 4096) on the same tokens.  A run's peak
+    memory holds the weights, its cache, its logits and each step's
+    transients."""
+    cfg = get_config(ARCH)
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    cache_len = TINYLLAMA.cache_len
+    for rows in INT8_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        toks = torch.randint(0, cfg.vocab, (rows, INT8_STEPS), device=dev,
+                             generator=gen)
+        runs = {}
+        for kv in ("", "int8"):
+            c = dataclasses.replace(cfg, kv_cache_dtype=kv)
+            caches = ST.init_cache(c, rows, cache_len, device=dev)
+            nbytes = sum(a.numel() * a.element_size()
+                         for a in T.leaves(caches))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            logits = []
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for t in range(INT8_STEPS):
+                    logits.append(ST.decode_step(params, c, caches,
+                                                 toks[:, t], t)[0])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / INT8_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            # the run's logits to the host, so each peak holds its own run
+            runs[kv or "bf16"] = (torch.stack(logits).cpu().float(), ms,
+                                  peak, nbytes)
+            del caches, logits
+            torch.cuda.empty_cache()
+        ref, ms16, peak16, b16 = runs["bf16"]
+        got, ms8, peak8, b8 = runs["int8"]
+        diff = float((got - ref).abs().max())
+        if not (bool(torch.isfinite(got).all()) and diff < 1.0):
+            raise AssertionError(f"int8 decode at {rows} rows: logits "
+                                 f"{diff} from the bf16 cache's")
+        print(f"int8 KV cache, {ARCH}, {rows} rows x cache {cache_len}, "
+              f"{INT8_STEPS} decode steps from init_cache: bf16 cache "
+              f"{b16 / 1e9:.3f} GB, {ms16:.2f} ms per step, peak "
+              f"{peak16 / 2**30:.2f} GiB; int8 cache {b8 / 1e9:.3f} GB, "
+              f"{ms8:.2f} ms per step, peak {peak8 / 2**30:.2f} GiB; max "
+              f"|logit diff| from the bf16 run {diff:.4e} (logits up to "
+              f"{float(ref.abs().max()):.3f}; host clock, synced)")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2076,7 +2419,11 @@ def main() -> int:
         served_by[cell.arch], _, _ = phase_serving(dev, params, cfg, cell)
         del params
         torch.cuda.empty_cache()
+    served_ds = phase_deepseek(dev)
+    phase_int8(dev)
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
+    if any(served_ds.values()):
+        raise AssertionError(f"{DS_ARCH} serving launched {served_ds}")
     launches["flash_attention"] = (served["flash_attention"]
                                    + served_rg["flash_attention"]
                                    + flash_layers
@@ -2099,6 +2446,8 @@ def main() -> int:
                 "library_ms": res[name]["library_ms"]}
                for name in REPLACES]
     print(f"total {time.time() - t0:.1f} s")
+    # again at the end, beside the numbers, where a cut log keeps it
+    print(f"card (nvidia-smi name, power.limit): {card_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@
 ``jax.tree.map(np.asarray, params)`` (nested dicts and lists of numpy
 arrays; bfloat16 arrays carry numpy's ``bfloat16`` extension dtype) and
 returns the same tree of torch tensors.  The port keeps the reference's
-layout (``x @ W`` with ``W`` of shape (d_in, d_out), stacked layer dims),
-so no leaf is transposed or reordered.
+layout (``x @ W`` with ``W`` of shape (d_in, d_out), stacked layer dims,
+MoE expert stacks (layers, E, d_in, d_out) and the ``shared`` experts'
+subtree), so no leaf is transposed or reordered.
 """
 from __future__ import annotations
 

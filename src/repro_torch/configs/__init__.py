@@ -1,12 +1,13 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-The dense, RG-LRU hybrid and RWKV-6 configs of the reference registry,
-copied with their published widths and sources; reduced smoke-test variants come from
-``cfg.reduced()``.
+The dense, MLA + MoE (DeepSeek-V2), RG-LRU hybrid and RWKV-6 configs of
+the reference registry, copied with their published widths and sources;
+reduced smoke-test variants come from ``cfg.reduced()``.
 """
 from __future__ import annotations
 
-from ..models.config import ModelConfig, RecurrentConfig
+from ..models.config import (MLAConfig, ModelConfig, MoEConfig,
+                             RecurrentConfig)
 
 _CONFIGS = {
     # arXiv:2401.02385 — Llama-2 architecture, small
@@ -49,6 +50,38 @@ _CONFIGS = {
         n_heads=40, n_kv_heads=40, head_dim=64, d_ff=8960, vocab=65536,
         block="rwkv", norm="layer", glu=False, act="relu", rope_frac=0.0,
         source="arXiv:2404.05892 (RWKV-6 Finch)"),
+    # DeepSeek-V2-Lite (16B total / 2.4B active): MLA (kv_lora 512, no
+    # q-lora), 64 routed experts top-6 + 2 shared, d_expert 1408; layer 0
+    # dense
+    "deepseek-v2-lite-16b": ModelConfig(
+        name="deepseek-v2-lite-16b", arch_type="moe", n_layers=27,
+        d_model=2048, n_heads=16, n_kv_heads=16,
+        d_ff=10944,          # dense layer-0 FFN width
+        vocab=102400, block="mla",
+        mla=MLAConfig(kv_lora_rank=512, q_lora_rank=None,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128),
+        moe=MoEConfig(n_routed=64, n_shared=2, top_k=6, d_expert=1408,
+                      first_dense_layers=1),
+        source="arXiv:2405.04434 (DeepSeek-V2-Lite)"),
+    # DeepSeek-V2 236B (21B active): MLA (kv_lora 512, q_lora 1536), 160
+    # routed experts top-6 + 2 shared, d_expert 1536; layer 0 dense
+    "deepseek-v2-236b": ModelConfig(
+        name="deepseek-v2-236b", arch_type="moe", n_layers=60,
+        d_model=5120, n_heads=128, n_kv_heads=128,
+        d_ff=12288,          # dense layer-0 FFN width
+        vocab=102400, block="mla",
+        mla=MLAConfig(kv_lora_rank=512, q_lora_rank=1536,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128),
+        moe=MoEConfig(n_routed=160, n_shared=2, top_k=6, d_expert=1536,
+                      first_dense_layers=1),
+        source="arXiv:2405.04434 (DeepSeek-V2)"),
+    # DeepSeek-Coder-33B: Llama architecture, GQA over 8 KV heads
+    "deepseek-coder-33b": ModelConfig(
+        name="deepseek-coder-33b", arch_type="dense", n_layers=62,
+        d_model=7168, n_heads=56, n_kv_heads=8, d_ff=19200, vocab=32256,
+        source="arXiv:2401.14196"),
 }
 
 ARCHS = tuple(_CONFIGS)

@@ -1,10 +1,11 @@
 """``repro_torch.core`` — the fusion IR, its cost substrate, the event
 simulator, the search, the paper's baselines, the tracer, the profiler
-(:mod:`.profile`, which times fused ops on the card) and the GNN estimator
-(:mod:`.gnn`) (port of ``repro/core``).  Not ported yet: the analytic
-model.  Importing this package loads no torch: :mod:`.trace` is loaded on
-first use and :mod:`.gnn` and :mod:`.profile` are imported by name, so the
-search's worker processes stay light."""
+(:mod:`.profile`, which times fused ops on the card), the GNN estimator
+(:mod:`.gnn`) and the analytic FLOP and byte model (:mod:`.analytic`)
+(port of ``repro/core``).  Importing this package loads no torch:
+:mod:`.trace` is loaded on first use and :mod:`.gnn`, :mod:`.profile` and
+:mod:`.analytic` are imported by name, so the search's worker processes
+stay light."""
 from .graph import DOT, EW, FusionGraph, LAYOUT, OPAQUE, PrimOp, REDUCE
 from .hw import (H100_SXM, Hardware, TPU_V5E, allreduce_time,
                  ring_allreduce_coeffs)

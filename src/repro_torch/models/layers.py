@@ -1,5 +1,6 @@
-"""Transformer building blocks, dense subset (port of
-``repro/models/layers.py``).
+"""Transformer building blocks (port of ``repro/models/layers.py``): norms,
+rope, GQA attention, DeepSeek-V2's Multi-head Latent Attention, the FFN and
+the routed-expert FFN.
 
 Conventions, as in the reference:
 * params are nested dicts of tensors; a projection is ``x @ W`` with ``W``
@@ -7,11 +8,13 @@ Conventions, as in the reference:
 * activations are (B, S, D); attention heads are laid out (B, S, H, hd).
 
 Ported: the train and prefill path over a full sequence (with flash
-attention through the CUDA kernel when asked for), and decode against a
-bf16/f32 KV cache.  Not yet: the int8 KV cache, MLA and MoE.  Decode takes
-one position per batch row, so the serving engine advances every slot in
-one batched call where the reference vmaps a batch-1 step; each row
-computes what the reference's step computes.
+attention through the CUDA kernel when asked for; MLA never takes it, as in
+the reference), and decode against a bf16/f32 KV cache, an int8 KV cache
+with bf16 scales, or MLA's compressed latent cache.  Not yet: the encoder's
+cross-attention.  Decode takes one position per batch row, so the serving
+engine advances every slot in one batched call where the reference vmaps a
+batch-1 step; each row computes what the reference's step computes
+(``moe_fwd(route_rows=True)`` routes each row as a batch of its own).
 
 Where the reference promotes a bf16 tensor to f32 (a numpy scalar or an f32
 operand in the expression), the port promotes it at the same point, so
@@ -59,10 +62,12 @@ def rope_freqs(cfg: ModelConfig, rot_dim: int, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, rot_dim: Optional[int] = None
+               ) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (S,), or (B, S) for one set per row.
-    Rotates the first ``rope_frac`` of each head."""
-    rot = int(x.shape[-1] * cfg.rope_frac)
+    Rotates the first ``rot_dim`` dims of each head (default: the first
+    ``rope_frac`` of it)."""
+    rot = rot_dim if rot_dim is not None else int(x.shape[-1] * cfg.rope_frac)
     if rot == 0:
         return x
     inv = rope_freqs(cfg, rot, x.device)
@@ -248,13 +253,26 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
         # dynamic_update_slice clamps
         ck, cv = cache["k"], cache["v"]
         csize = ck.shape[1]
-        pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+        pos = _row_positions(pos, B, x.device)
         slot = pos % csize if window is not None else pos
         slot = slot.clamp(0, csize - S)
         rows = torch.arange(B, device=x.device)
-        ck[rows, slot] = k[:, 0].to(ck.dtype)
-        cv[rows, slot] = v[:, 0].to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
+        quant = "k_scale" in cache
+        if quant:
+            # int8 KV cache: symmetric scales per (row, slot, KV head),
+            # stored in bf16; the entries are quantised with the f32 scale
+            cks, cvs = cache["k_scale"], cache["v_scale"]
+            kq, ks = _quantize_int8(k[:, 0])
+            vq, vs = _quantize_int8(v[:, 0])
+            ck[rows, slot] = kq
+            cv[rows, slot] = vq
+            cks[rows, slot] = ks.to(cks.dtype)
+            cvs[rows, slot] = vs.to(cvs.dtype)
+            new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
+        else:
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            new_cache = {"k": ck, "v": cv}
         kpos = torch.arange(csize, device=x.device)[None, :]
         if window is not None:
             # ring buffer: entry i holds an absolute position within the
@@ -265,7 +283,13 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
             ok = kpos <= pos[:, None]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         mask = torch.where(ok, zero, torch.full_like(zero, _F32_MIN))
-        out = sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask[:, None, None, :])
+        if quant:
+            # the whole cache dequantised every step, as in the reference
+            kd = ck.to(q.dtype) * cks[..., None].to(q.dtype)
+            vd = cv.to(q.dtype) * cvs[..., None].to(q.dtype)
+        else:
+            kd, vd = ck.to(q.dtype), cv.to(q.dtype)
+        out = sdpa(q, kd, vd, mask[:, None, None, :])
     else:
         out = sdpa(q, k, v, None, use_flash=use_flash, window=window)
         if return_cache:
@@ -281,12 +305,142 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     return (out, new_cache) if (return_cache or cache is not None) else out
 
 
+def _row_positions(pos, B: int, device) -> torch.Tensor:
+    """A decode step's write position per row, (B,), from a scalar or (B,)
+    ``pos``."""
+    return torch.as_tensor(pos, device=device).reshape(-1).expand(B)
+
+
+def _quantize_int8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last dim: (entries, f32 scales), the scale
+    max|t| / 127 and each entry ``t / scale`` rounded half to even."""
+    tf = t.float()
+    scale = tf.abs().amax(-1) / 127.0
+    q = torch.round(tf / torch.clamp(scale[..., None], min=1e-8))
+    return q.to(torch.int8), scale
+
+
+# --------------------------------------------------------------------- MLA
+def init_mla(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
+    """f32 MLA weights drawn from ``gen``: the query projection (low-rank
+    ``w_dq``, ``q_norm``, ``w_uq`` when ``q_lora_rank`` is set, else
+    ``wq``), the latent's down projection ``w_dkv`` and ``kv_norm``, the
+    shared rope key ``w_kr``, the up projections ``w_uk`` and ``w_uv``, and
+    ``wo``."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qdim = H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+    def ones(n):
+        return {"scale": torch.ones((*lead, n), dtype=torch.float32)}
+
+    p: dict = {}
+    if m.q_lora_rank:
+        p["w_dq"] = _dense(gen, d, m.q_lora_rank, lead)
+        p["w_uq"] = _dense(gen, m.q_lora_rank, qdim, lead)
+        p["q_norm"] = ones(m.q_lora_rank)
+    else:
+        p["wq"] = _dense(gen, d, qdim, lead)
+    p["w_dkv"] = _dense(gen, d, m.kv_lora_rank, lead)
+    p["w_kr"] = _dense(gen, d, m.qk_rope_head_dim, lead)
+    p["kv_norm"] = ones(m.kv_lora_rank)
+    p["w_uk"] = _dense(gen, m.kv_lora_rank, H * m.qk_nope_head_dim, lead)
+    p["w_uv"] = _dense(gen, m.kv_lora_rank, H * m.v_head_dim, lead)
+    p["wo"] = _dense(gen, H * m.v_head_dim, d, lead)
+    return p
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    ms = x.float().square().mean(-1, keepdim=True)
+    return (x.float() * torch.rsqrt(ms + 1e-6) * scale).to(x.dtype)
+
+
+def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
+            cache: Optional[dict] = None, pos=None,
+            return_cache: bool = False, cache_len: int = 0):
+    """Multi-head Latent Attention (DeepSeek-V2).  The decode cache holds
+    only the compressed latent ``c_kv`` (B, T, kv_lora_rank) and the shared
+    rope key ``k_rope`` (B, T, qk_rope_head_dim).  Train/prefill (``cache``
+    None) folds (nope ++ rope) into one head dim through :func:`sdpa`,
+    never the flash kernel, as the reference does; decode writes each row's
+    latent at its own position in place (clamped, as the reference's
+    ``dynamic_update_slice``) and attends over the whole cache, masked."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    if m.q_lora_rank:
+        q = _rms(x @ p["w_dq"].to(x.dtype), p["q_norm"]["scale"])
+        q = q @ p["w_uq"].to(x.dtype)
+    else:
+        q = x @ p["wq"].to(x.dtype)
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg, rot_dim=dr)
+
+    c_kv = _rms(x @ p["w_dkv"].to(x.dtype), p["kv_norm"]["scale"])
+    k_rope = apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :],
+                        positions, cfg, rot_dim=dr)         # (B, S, 1, dr)
+
+    new_cache = None
+    if cache is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        T = cc.shape[1]
+        pos = _row_positions(pos, B, x.device)
+        slot = pos.clamp(0, T - S)
+        rows = torch.arange(B, device=x.device)
+        cc[rows, slot] = c_kv[:, 0].to(cc.dtype)
+        cr[rows, slot] = k_rope[:, 0, 0].to(cr.dtype)
+        new_cache = {"c_kv": cc, "k_rope": cr}
+        c_kv_all = cc.to(x.dtype)
+        k_rope_all = cr.to(x.dtype)[:, :, None]
+        ok = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        bias = torch.where(ok, zero, torch.full_like(zero, _F32_MIN))
+        bias = bias[:, None, None, :]                       # (B, 1, 1, T)
+    else:
+        c_kv_all, k_rope_all = c_kv, k_rope
+        T = S
+        if return_cache:
+            size = cache_len or S
+            take = min(S, size)
+            cc = torch.zeros((B, size, m.kv_lora_rank), dtype=x.dtype,
+                             device=x.device)
+            cr = torch.zeros((B, size, dr), dtype=x.dtype, device=x.device)
+            cc[:, :take] = c_kv[:, :take]
+            cr[:, :take] = k_rope[:, :take, 0]
+            new_cache = {"c_kv": cc, "k_rope": cr}
+
+    # the latent's up projections: k_nope (B, T, H, dn), v (B, T, H, dv)
+    k_nope = (c_kv_all @ p["w_uk"].to(x.dtype)).reshape(B, T, H, dn)
+    vv = (c_kv_all @ p["w_uv"].to(x.dtype)).reshape(B, T, H, m.v_head_dim)
+    if cache is None:
+        # scores = q_nope.k_nope + q_rope.k_rope as one head of dn + dr;
+        # sdpa's 1/sqrt(hd) is MLA's 1/sqrt(dn + dr)
+        q_eff = torch.cat([q_nope, q_rope], dim=-1)
+        k_eff = torch.cat([k_nope, k_rope_all.expand(B, T, H, dr)], dim=-1)
+        v_pad = F.pad(vv, (0, q_eff.shape[-1] - m.v_head_dim))
+        out = sdpa(q_eff, k_eff, v_pad, None, causal=True)[..., :m.v_head_dim]
+        out = out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+        return (out, new_cache) if return_cache else out
+    scale = 1.0 / np.sqrt(dn + dr)
+    s_nope = torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+    s_rope = torch.einsum("bshd,btxd->bhst", q_rope,
+                          k_rope_all.expand(B, T, 1, dr))
+    scores = (s_nope + s_rope).float() * scale + bias
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhst,bthd->bshd", w, vv).reshape(B, S, -1)
+    return out @ p["wo"].to(x.dtype), new_cache
+
+
 # --------------------------------------------------------------------- FFN
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead=()) -> dict:
-    p = {"w_down": _dense(gen, cfg.d_ff, cfg.d_model, lead),
-         "w_up": _dense(gen, cfg.d_model, cfg.d_ff, lead)}
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead=(),
+             d_ff: Optional[int] = None) -> dict:
+    d_ff = d_ff or cfg.d_ff
+    p = {"w_down": _dense(gen, d_ff, cfg.d_model, lead),
+         "w_up": _dense(gen, cfg.d_model, d_ff, lead)}
     if cfg.glu:
-        p["w_gate"] = _dense(gen, cfg.d_model, cfg.d_ff, lead)
+        p["w_gate"] = _dense(gen, cfg.d_model, d_ff, lead)
     return p
 
 
@@ -305,3 +459,98 @@ def mlp_fwd(p: dict, cfg: ModelConfig, x):
     else:
         h = _act(cfg, up)
     return h @ p["w_down"].to(x.dtype)
+
+
+# --------------------------------------------------------------------- MoE
+def init_moe(gen: torch.Generator, cfg: ModelConfig, lead, cast) -> dict:
+    """Routed experts: the router (d, E) at scale 0.02, the experts'
+    stacked FFN weights (E, d, de) and (E, de, d), and the shared experts
+    as one FFN of width ``n_shared * d_expert``.  ``cast`` is applied to
+    each expert stack as soon as it is drawn, so only one f32 stack is
+    alive at a time."""
+    e = cfg.moe
+    d, de, E = cfg.d_model, e.d_expert, e.n_routed
+    p = {
+        "router": _randn(gen, (*lead, d, E)) * 0.02,
+        "w_up": cast(_dense(gen, d, de, (*lead, E))),
+        "w_down": cast(_dense(gen, de, d, (*lead, E))),
+    }
+    if cfg.glu:
+        p["w_gate"] = cast(_dense(gen, d, de, (*lead, E)))
+    if e.n_shared:
+        p["shared"] = init_mlp(gen, cfg, lead, d_ff=e.n_shared * de)
+    return p
+
+
+def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False):
+    """Top-k routed experts with sort-based dispatch, as the reference's
+    ``moe_fwd``: a softmax router, the top k with ties to the lower index,
+    renormalised weights and the Switch load-balance aux loss; the token
+    copies sorted stably by expert, each expert keeping its first C in that
+    order (C from the token count T), packed into an (E, C, D) buffer; the
+    experts as batched GEMMs over E; the weighted outputs added back in
+    token order (each token's in ascending expert order, as the sorted
+    scatter-add adds them); then the shared experts.  Returns (out,
+    aux_loss).
+
+    ``route_rows`` routes each batch row as a batch of its own (T = S per
+    row), as the reference engine's vmap over batch-1 decode steps does;
+    the aux loss is then the rows' mean.  Counts use a static-shape
+    scatter-add, so the function traces on meta tensors."""
+    e = cfg.moe
+    B, S, D = x.shape
+    G, T = (B, S) if route_rows else (1, B * S)
+    k, E = e.top_k, e.n_routed
+    C = max(int(np.ceil(e.capacity_factor * k * T / E)), min(8, T * k))
+    dev, dt = x.device, x.dtype
+    xt = x.reshape(G, T, D)
+    logits = (xt @ p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)                   # (G, T, E)
+    # a stable descending sort: equal probabilities keep ascending index
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]
+    topv = topv / (topv.sum(-1, keepdim=True) + 1e-9)
+    density = F.one_hot(topi[..., 0], E).float().mean(-2)   # (G, E)
+    router_prob = probs.mean(-2)
+    aux = (e.aux_loss_coef * E * (density * router_prob).sum(-1)).mean()
+
+    flat_e = topi.reshape(G, T * k)
+    flat_w = topv.reshape(G, T * k).to(dt)
+    n = T * k
+    flat_tok = torch.arange(n, device=dev) // k
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = flat_e.gather(-1, order)
+    counts = torch.zeros((G, E), dtype=torch.int64, device=dev).scatter_add_(
+        -1, sorted_e, torch.ones_like(sorted_e))
+    offsets = torch.cumsum(counts, -1) - counts
+    pos_in_e = torch.arange(n, device=dev) - offsets.gather(-1, sorted_e)
+    keep = (pos_in_e < C).to(dt)
+    slot = sorted_e * C + torch.clamp(pos_in_e, max=C - 1)
+    tok_sorted = flat_tok[order]                            # (G, n)
+    rows = xt.gather(1, tok_sorted[..., None].expand(G, n, D))
+    buf = torch.zeros((G, E * C, D), dtype=dt, device=dev).scatter_add_(
+        1, slot[..., None].expand(G, n, D), rows * keep[..., None])
+    # experts as one batched GEMM over E, the G groups' slots side by side
+    xe = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    up = torch.bmm(xe, p["w_up"].to(dt))
+    if cfg.glu:
+        h = _act(cfg, torch.bmm(xe, p["w_gate"].to(dt))) * up
+    else:
+        h = _act(cfg, up)
+    out_e = torch.bmm(h, p["w_down"].to(dt))
+    out_e = out_e.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    w_sorted = flat_w.gather(-1, order) * keep
+    contrib = out_e.gather(1, slot[..., None].expand(G, n, D)) \
+        * w_sorted[..., None]
+    # back into token order: unsort, then each token's k contributions in
+    # ascending expert order, added one at a time
+    by_tok = torch.empty_like(contrib).scatter_(
+        1, order[..., None].expand(G, n, D), contrib).reshape(G, T, k, D)
+    asc = topi.argsort(-1)                   # a token's experts are distinct
+    by_tok = by_tok.gather(2, asc[..., None].expand(G, T, k, D))
+    out = torch.zeros((G, T, D), dtype=dt, device=dev)
+    for j in range(k):
+        out = out + by_tok[:, :, j]
+    if e.n_shared:
+        out = out + mlp_fwd(p["shared"], cfg, xt)
+    return out.reshape(B, S, D), aux

@@ -1,12 +1,13 @@
 """The per-layer decoder, and the pieces the stacked model shares with it
-(port of ``repro/models/model.py``), for dense attention blocks, the
-RG-LRU blocks of the recurrent hybrid and RWKV-6 blocks.
+(port of ``repro/models/model.py``), for dense attention blocks (with a
+bf16/f32 or int8 KV cache), MLA blocks with routed experts (DeepSeek-V2),
+the RG-LRU blocks of the recurrent hybrid and RWKV-6 blocks.
 
 Entry points, as in the reference:
     init_params(cfg, seed=, device=)           {"embed", "layers": [...],
                                                "final_norm", "lm_head"?}
     forward(params, cfg, tokens)               (logits, aux)
-    loss_fn(params, cfg, batch)                mean next-token CE
+    loss_fn(params, cfg, batch)                mean next-token CE + MoE aux
     init_cache(cfg, batch, cache_len)          per-layer decode state
     prefill(params, cfg, tokens, cache_len)    (last logits, caches)
     decode_step(params, cfg, caches, token, pos) (logits, caches)
@@ -15,8 +16,8 @@ The per-layer tree's leaves come in the reference's ``jax.tree.leaves``
 order (``embed``, ``final_norm``, then each layer's, then ``lm_head``), so
 a Plan's bucket indices name the same tensors in both packages.  The
 per-layer model has no loop for the tracer to collapse: its trace shows
-every layer's ops.  MLA, MoE, the encoder-decoder and the VLM prefix are
-not ported (ROADMAP A6).
+every layer's ops.  The encoder-decoder and the VLM prefix are not ported
+(ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -30,12 +31,14 @@ from . import recurrent as R
 from .config import ModelConfig
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int,
-               lead=()) -> dict:
+def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int, lead,
+               cast) -> dict:
     """Block ``li``'s f32 parameters, drawn from ``gen`` (as
     ``layers._randn`` places them); ``lead`` prepends stacked dims.  An
-    ``attn`` block holds ``attn``, a ``rec`` block ``rec``; both hold the
-    norms and the MLP."""
+    ``attn`` block holds ``attn`` (MLA's weights when ``cfg.block ==
+    "mla"``), a ``rec`` block ``rec``; both hold the norms and the MLP, or
+    ``moe`` in an MoE layer, whose expert stacks are passed through
+    ``cast`` as each is drawn."""
     def norm():
         return {k: v.expand(*lead, -1).clone()
                 for k, v in L.init_norm(cfg, cfg.d_model, "cpu").items()}
@@ -47,10 +50,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int,
         return p
     if cfg.block_kind(li) == "rec":
         p["rec"] = R.init_recurrent_block(gen, cfg, lead)
+    elif cfg.block == "mla":
+        p["attn"] = L.init_mla(gen, cfg, lead)
     else:
         p["attn"] = L.init_attention(gen, cfg, lead)
     p["ln2"] = norm()
-    p["mlp"] = L.init_mlp(gen, cfg, lead)
+    if cfg.is_moe_layer(li):
+        p["moe"] = L.init_moe(gen, cfg, lead, cast=cast)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, lead)
     return p
 
 
@@ -116,14 +124,26 @@ def _decode_embed(params, cfg: ModelConfig, token, pos):
 
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
                return_cache: bool = False, cache_len: int = 0,
-               use_kernels: bool = False, li: int = 0):
-    """Block ``li`` (pre-norm attention or RG-LRU block, then pre-norm
-    MLP; or pre-norm RWKV time mix, then pre-norm channel mix).  Returns x,
-    or (x, new_cache) when a cache is given or asked for, as
-    ``attention_fwd`` does.  ``use_kernels`` runs attention through the
-    flash-attention kernel and the RG-LRU and WKV-6 recurrences through
-    their kernels."""
+               use_kernels: bool = False, li: int = 0,
+               with_aux: bool = False, route_rows: bool = False):
+    """Block ``li`` (pre-norm attention, MLA or RG-LRU block, then pre-norm
+    MLP or routed experts; or pre-norm RWKV time mix, then pre-norm channel
+    mix).  Returns x, or (x, new_cache) when a cache is given or asked for,
+    as ``attention_fwd`` does; with ``with_aux``, (x, aux, new_cache) as
+    the reference's ``_layer_fwd`` (aux the experts' load-balance loss, 0
+    elsewhere).  ``use_kernels`` runs attention through the flash-attention
+    kernel (never MLA, as in the reference) and the RG-LRU and WKV-6
+    recurrences through their kernels; ``route_rows`` routes each batch
+    row's tokens through the experts as a batch of their own."""
     want_cache = return_cache or cache is not None
+
+    def done(x, new_cache, aux=None):
+        if with_aux:
+            if aux is None:
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return x, aux, new_cache
+        return (x, new_cache) if want_cache else x
+
     h = L.norm_fwd(p["ln1"], cfg, x)
     if cfg.block_kind(li) == "rwkv":
         tm_out, tnew = R.rwkv_time_mix(
@@ -134,11 +154,14 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
         cm_out, cnew = R.rwkv_channel_mix(
             p["tmix"], cfg, h2, state=cache["cmix"] if cache else None)
         x = x + cm_out
-        return (x, {"tmix": tnew, "cmix": cnew}) if want_cache else x
+        return done(x, {"tmix": tnew, "cmix": cnew} if want_cache else None)
     if cfg.block_kind(li) == "rec":
         r = R.recurrent_block_fwd(p["rec"], cfg, h, state=cache,
                                   return_state=return_cache,
                                   use_kernel=use_kernels)
+    elif cfg.block == "mla":
+        r = L.mla_fwd(p["attn"], cfg, h, positions, cache=cache, pos=pos,
+                      return_cache=return_cache, cache_len=cache_len)
     else:
         r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache,
                             pos=pos, window=cfg.window, use_flash=use_kernels,
@@ -146,15 +169,23 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     mix_out, new_cache = r if want_cache else (r, None)
     x = x + mix_out
     h2 = L.norm_fwd(p["ln2"], cfg, x)
-    x = x + L.mlp_fwd(p["mlp"], cfg, h2)
-    return (x, new_cache) if want_cache else x
+    aux = None
+    if cfg.is_moe_layer(li):
+        ff, aux = L.moe_fwd(p["moe"], cfg, h2, route_rows=route_rows)
+    else:
+        ff = L.mlp_fwd(p["mlp"], cfg, h2)
+    return done(x + ff, new_cache, aux)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> list:
     """Per-layer zero decode state, as in the reference: an ``attn`` block
     holds ``{"k", "v"}`` of (batch, size, KV, hd) in ``cfg.dtype``, with
-    size ``min(cache_len, window)`` for a sliding window; a ``rec`` block
+    size ``min(cache_len, window)`` for a sliding window; with
+    ``kv_cache_dtype == "int8"``, int8 ``k`` and ``v`` and bf16 ``k_scale``
+    and ``v_scale`` of (batch, size, KV); an MLA block ``{"c_kv": (batch,
+    cache_len, kv_lora_rank), "k_rope": (batch, cache_len,
+    qk_rope_head_dim)}`` in ``cfg.dtype``; a ``rec`` block
     holds ``{"h": (batch, L) f32, "conv": (batch, W-1, L) cfg.dtype}``; an
     ``rwkv`` block ``{"tmix": {"wkv": (batch, H, hd, hd) f32, "prev":
     (batch, D)}, "cmix": {"prev": (batch, D)}}``, ``prev`` in cfg.dtype."""
@@ -179,8 +210,25 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                 "conv": torch.zeros((batch, cfg.recurrent.conv_width - 1, Lw),
                                     dtype=dt, device=device)})
             continue
+        if cfg.block == "mla":
+            m = cfg.mla
+            caches.append({
+                "c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
+                                    dtype=dt, device=device),
+                "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
+                                      dtype=dt, device=device)})
+            continue
         size = min(cache_len, cfg.window) if cfg.window else cache_len
         shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+        if cfg.kv_cache_dtype == "int8":
+            caches.append({
+                "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=device)})
+            continue
         caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)})
     return caches
@@ -192,11 +240,9 @@ _NOT_PORTED = "is not ported yet (ROADMAP A6)"
 
 
 def _check_supported(cfg: ModelConfig, batch=None) -> None:
-    """Raise for a block or an input that waits on ROADMAP A6: an MLA
-    block, the VLM prefix and the encoder's frames (the port's config has
-    no MoE, encoder or VLM fields yet)."""
-    if cfg.block not in ("attn", "rwkv"):
-        raise NotImplementedError(f"block {cfg.block!r} {_NOT_PORTED}")
+    """Raise for an input that waits on ROADMAP A6: the VLM prefix and the
+    encoder's frames (the port's config has no encoder or VLM fields
+    yet)."""
     for key in ("prefix_emb", "enc_frames"):
         if batch is not None and batch.get(key) is not None:
             raise NotImplementedError(f"batch[{key!r}] {_NOT_PORTED}")
@@ -227,27 +273,30 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
 
 def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
             remat: bool = False):
-    """Full-sequence logits (B, S, vocab) and the auxiliary loss (0: no
-    MoE).  ``remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``."""
+    """Full-sequence logits (B, S, vocab) and the summed auxiliary loss of
+    the MoE layers (0 without MoE).  ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``), as the reference's
+    ``jax.checkpoint``."""
     _check_supported(cfg)
     x, positions = _embed_positions(params, cfg, tokens)
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, p in enumerate(params["layers"]):
-        kw = dict(use_kernels=use_kernels, li=li)
+        kw = dict(use_kernels=use_kernels, li=li, with_aux=True)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer_fwd, p, cfg, x, positions,
-                           use_reentrant=False, **kw)
+            x, aux, _ = checkpoint(_layer_fwd, p, cfg, x, positions,
+                                   use_reentrant=False, **kw)
         else:
-            x = _layer_fwd(p, cfg, x, positions, **kw)
+            x, aux, _ = _layer_fwd(p, cfg, x, positions, **kw)
+        total_aux = total_aux + aux
     x = L.norm_fwd(params["final_norm"], cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _unembed(params, cfg, x), aux
+    return _unembed(params, cfg, x), total_aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, use_kernels: bool = False,
             remat: bool = False):
-    """Mean next-token cross-entropy over the full f32 logits (the
-    reference's ``model.loss_fn``; the stacked model chunks it)."""
+    """Mean next-token cross-entropy over the full f32 logits, plus the MoE
+    aux loss (the reference's ``model.loss_fn``; the stacked model chunks
+    it)."""
     _check_supported(cfg, batch)
     tokens = batch["tokens"]
     logits, aux = forward(params, cfg, tokens, use_kernels=use_kernels,
@@ -274,16 +323,21 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     return _unembed(params, cfg, x)[:, 0], caches
 
 
-def decode_step(params, cfg: ModelConfig, caches, token, pos):
+def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
+                route_rows: bool = False):
     """One serving step over per-layer ``caches``.  ``token`` (B,) int;
     ``pos`` the position each row writes, a scalar or (B,).  Writes the
     caches in place (the reference returns updated copies) and returns
-    (logits (B, vocab), caches)."""
+    (logits (B, vocab), caches).  The experts route the B rows together,
+    as the reference's ``decode_step`` at batch B, unless ``route_rows``
+    routes each row as a batch of one, as the reference engine's vmapped
+    batch-1 step does (the capacity then drops no token)."""
     _check_supported(cfg)
     x, positions, pos = _decode_embed(params, cfg, token, pos)
     out = []
     for li, (p, c) in enumerate(zip(params["layers"], caches)):
-        x, c = _layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li)
+        x, c = _layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li,
+                          route_rows=route_rows)
         out.append(c)
     x = L.norm_fwd(params["final_norm"], cfg, x)
     return _unembed(params, cfg, x)[:, 0], out

@@ -7,9 +7,13 @@ them (:func:`leaves`), so a Plan's bucket indices name the same tensors in
 both packages.  A dense model is one ``plain`` group of ``n_layers``; for
 tinyllama that is 12 leaves: ``embed``, ``final_norm.scale``,
 ``groups[0].attn.{wk,wo,wq,wv}``, ``groups[0].{ln1,ln2}.scale``,
-``groups[0].mlp.{w_down,w_gate,w_up}`` and ``lm_head``.  RWKV-6 is one
-``plain`` group too, its blocks holding ``ln1``, ``ln2`` and ``tmix`` (time
-mix and channel mix).  A recurrent hybrid is a ``cycle`` group of whole
+``groups[0].mlp.{w_down,w_gate,w_up}`` and ``lm_head``.  A DeepSeek-V2
+model is a ``plain`` group of its ``first_dense_layers`` (MLA and a dense
+MLP) and a ``plain`` group of its MoE layers (MLA and ``moe``: the router,
+the (count, E, ...) expert stacks and the ``shared`` experts' MLP); the
+aux loss of the experts is summed over the layers into the loss.  RWKV-6
+is one ``plain`` group too, its blocks holding ``ln1``, ``ln2`` and
+``tmix`` (time mix and channel mix).  A recurrent hybrid is a ``cycle`` group of whole
 pattern cycles plus a ``tail`` group of the layers left over, each holding
 one subtree ``b{j}`` per position of the cycle (recurrentgemma-9b: 12 x
 (rec, rec, attn) and a tail of (rec, rec), 63 leaves).
@@ -21,13 +25,16 @@ the reference.
 
 Serving: :func:`init_cache` keeps the reference's stacked cache layout (a
 list per layer group, stacked like the parameters: ``{"k", "v"}`` of
-(count, B, size, KV, hd) for attention, ``{"h", "conv"}`` for RG-LRU
+(count, B, size, KV, hd) for attention, with ``{"k_scale", "v_scale"}``
+beside int8 ``k`` and ``v`` for ``kv_cache_dtype == "int8"``, ``{"c_kv",
+"k_rope"}`` for MLA, ``{"h", "conv"}`` for RG-LRU
 blocks, under ``b{j}`` in a cycle, ``{"cmix": {"prev"}, "tmix": {"prev",
 "wkv"}}`` for RWKV blocks), :func:`prefill` returns the last position's
 logits and fresh caches, and :func:`decode_step` advances one token per
-row, writing the caches in place.  ``use_kernels=True`` runs attention
-through the flash-attention kernel and the RG-LRU and WKV-6 recurrences
-through their kernels, as the reference's ``use_kernels`` runs its Pallas
+row, writing the caches in place; its experts route the batch's rows
+together, or each row alone with ``route_rows=True``.
+``use_kernels=True`` runs attention through the flash-attention kernel
+and the RG-LRU and WKV-6 recurrences through their kernels, as the reference's ``use_kernels`` runs its Pallas
 kernels; the train step never sets it.
 """
 from __future__ import annotations
@@ -61,6 +68,11 @@ def layer_groups(cfg: ModelConfig) -> list[dict]:
             groups.append({"kind": "tail", "count": 1,
                            "start": n_cycles * cyc, "cycle": rem})
         return groups
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        fd = cfg.moe.first_dense_layers
+        return [{"kind": "plain", "count": fd, "start": 0, "cycle": 1},
+                {"kind": "plain", "count": cfg.n_layers - fd, "start": fd,
+                 "cycle": 1}]
     return [{"kind": "plain", "count": cfg.n_layers, "start": 0, "cycle": 1}]
 
 
@@ -72,7 +84,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     ``torch.Generator(seed)``, cast, and moved to ``device``.  The generator
     is on the CPU, so a seed gives the same weights on every device;
     ``draw_on_device`` draws on ``device`` instead (other numbers, no host
-    round trip)."""
+    round trip).  Expert stacks are cast as each is drawn, so a full-width
+    MoE model holds one f32 stack at a time."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=dev if draw_on_device else "cpu")
@@ -80,6 +93,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
 
     def cast(tree):
         return T.map(lambda a: a.to(device=dev, dtype=dt), tree)
+
+    def init_layer(li, lead):
+        return cast(M.init_layer(gen, cfg, li, lead, cast=cast))
 
     params: dict = {
         "embed": cast(L._randn(gen, (cfg.vocab, cfg.d_model)) * 0.02),
@@ -89,11 +105,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     for g in layer_groups(cfg):
         lead = (g["count"],)
         if g["kind"] == "plain":
-            params["groups"].append(cast(M.init_layer(gen, cfg, g["start"],
-                                                      lead)))
+            params["groups"].append(init_layer(g["start"], lead))
         else:
             params["groups"].append(
-                {f"b{j}": cast(M.init_layer(gen, cfg, g["start"] + j, lead))
+                {f"b{j}": init_layer(g["start"] + j, lead)
                  for j in range(g["cycle"])})
     if not cfg.tie_embeddings:
         params["lm_head"] = cast(L._randn(gen, (cfg.d_model, cfg.vocab))
@@ -134,31 +149,35 @@ _embed_positions = M._embed_positions
 def hidden_forward(params, cfg: ModelConfig, tokens, *,
                    use_kernels: bool = False, remat: bool = False):
     """Everything before the unembed: (B, S) tokens -> (B, S, D) normed
-    hidden states."""
+    hidden states, and the layers' summed MoE aux loss (0 without MoE)."""
     x, positions = _embed_positions(params, cfg, tokens)
 
     def block(p, x, li):
-        return M._layer_fwd(p, cfg, x, positions, use_kernels=use_kernels,
-                            li=li)
+        x, aux, _ = M._layer_fwd(p, cfg, x, positions,
+                                 use_kernels=use_kernels, li=li,
+                                 with_aux=True)
+        return x, aux
 
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     li = 0
     for g, tree in zip(layer_groups(cfg), params["groups"]):
         # the reference scans each group; the tracer collapses the loop
         with scan_region():
             for p in _group_layers(tree, g):
                 if remat and torch.is_grad_enabled():
-                    x = checkpoint(block, p, x, li, use_reentrant=False)
+                    x, aux = checkpoint(block, p, x, li, use_reentrant=False)
                 else:
-                    x = block(p, x, li)
+                    x, aux = block(p, x, li)
+                total_aux = total_aux + aux
                 li += 1
-    return L.norm_fwd(params["final_norm"], cfg, x)
+    return L.norm_fwd(params["final_norm"], cfg, x), total_aux
 
 
 def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
             remat: bool = False):
     """Full-sequence logits (B, S, vocab)."""
-    x = hidden_forward(params, cfg, tokens, use_kernels=use_kernels,
-                       remat=remat)
+    x, _ = hidden_forward(params, cfg, tokens, use_kernels=use_kernels,
+                          remat=remat)
     return M._unembed(params, cfg, x)
 
 
@@ -176,9 +195,10 @@ def _ce_chunk(params, cfg: ModelConfig, xc, tc, wc):
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
     """Next-token CE computed in sequence chunks with an f32 logsumexp —
-    the full (B, S, V) logits tensor is never materialised."""
+    the full (B, S, V) logits tensor is never materialised — plus the MoE
+    aux loss, added after the chunks as in the reference."""
     tokens = batch["tokens"]
-    x = hidden_forward(params, cfg, tokens, remat=remat)
+    x, aux = hidden_forward(params, cfg, tokens, remat=remat)
     B, S, D = x.shape
     dev = x.device
     targets = torch.cat(
@@ -202,7 +222,7 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
                 ce, n = _ce_chunk(*args)
             ce_sum = ce_sum + ce
             cnt = cnt + n
-    return ce_sum / torch.clamp(cnt, min=1.0)
+    return ce_sum / torch.clamp(cnt, min=1.0) + aux
 
 
 # ------------------------------------------------------------------- decode
@@ -232,13 +252,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return _stack_caches(cfg, M.init_cache(cfg, batch, cache_len, device=dev))
 
 
-def decode_step(params, cfg: ModelConfig, caches, token, pos):
+def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
+                route_rows: bool = False):
     """One serving step.  ``token`` (B,) int; ``pos`` the position each row
     writes: a scalar, as in the reference, or (B,) for one per row.
-    Writes the new k/v and recurrent states into ``caches`` in place.
-    Returns (logits (B, vocab), caches)."""
+    Writes the new k/v, latents and recurrent states into ``caches`` in
+    place.  Returns (logits (B, vocab), caches).  The experts route the B
+    rows together, as the reference's ``decode_step`` does (its capacity
+    from T = B may drop tokens); ``route_rows`` routes each row as a batch
+    of one, as the reference engine's vmap over batch-1 steps does."""
     logits, _ = M.decode_step(M.from_stacked(params, cfg), cfg,
-                              _per_layer(caches, cfg), token, pos)
+                              _per_layer(caches, cfg), token, pos,
+                              route_rows=route_rows)
     return logits, caches
 
 

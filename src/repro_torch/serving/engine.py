@@ -15,11 +15,19 @@ Two differences from the reference, neither of which changes a token:
   kernels' plain versions run.
 * Decode advances all slots in one batched call with one position per
   slot, where the reference vmaps a batch-1 step over the slots; each slot
-  computes what the reference's step computes.  The caches (nested trees:
-  ``{"k", "v"}`` per attention block, ``{"h", "conv"}`` per RG-LRU block,
+  computes what the reference's step computes.  The routed experts of an
+  MoE model route each slot's token as a batch of one
+  (``decode_step(route_rows=True)``), as under the reference's vmap: their
+  capacity then drops no token, whatever the number of slots.  The caches
+  (nested trees: ``{"k", "v"}`` per attention block, ``{"c_kv",
+  "k_rope"}`` per MLA block, ``{"h", "conv"}`` per RG-LRU block,
   ``{"cmix": {"prev"}, "tmix": {"prev", "wkv"}}`` per RWKV block) are
   updated in place; they are installed, gathered and scattered leaf by
   leaf in key order, which the prefill's caches share.
+
+An int8 KV cache (``kv_cache_dtype="int8"``) is refused when the engine is
+made: the prefill returns ``{"k", "v"}`` in the activations' dtype, and the
+reference engine fails installing it into the four-leaf int8 cache.
 
 A model with a sliding window is served only at ``cache_len <= window``:
 the reference's prefill returns a cache of ``cache_len`` rows while its
@@ -92,6 +100,12 @@ class ServeEngine:
             cache_len = int(plan.cache_len) if plan is not None else 256
         if decode_batch is None and plan is not None:
             decode_batch = int(plan.decode_batch)
+        if cfg.kv_cache_dtype == "int8":
+            raise ValueError("the engine serves no int8 KV cache: its "
+                             "prefill returns k/v in the activations' dtype "
+                             "and nothing quantises them at install; decode "
+                             "an int8 cache through init_cache and "
+                             "decode_step")
         if cfg.window is not None and cache_len > cfg.window:
             raise ValueError(f"cache_len {cache_len} exceeds the attention "
                              f"window {cfg.window}: a windowed model is "
@@ -133,7 +147,7 @@ class ServeEngine:
         (n,) host arrays.  Returns the logits (n, vocab)."""
         logits, _ = ST.decode_step(self.params, self.cfg, caches,
                                    self._tensor(tokens),
-                                   self._tensor(positions))
+                                   self._tensor(positions), route_rows=True)
         return logits
 
     @torch.no_grad()

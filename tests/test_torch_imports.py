@@ -1,7 +1,8 @@
 """``repro_torch`` and every one of its modules import with ``jax`` and the
 reference package ``repro`` blocked, as does ``chip_smoke.py``: the port
 keeps its own copies of what it needs from the reference.  Among them the
-serving plan and the examples."""
+serving plan, the examples, the analytic cost model and the MLA, MoE and
+int8-cache model code."""
 import os
 import subprocess
 import sys
@@ -33,7 +34,9 @@ leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
 for name in ("repro_torch.serving.plan", "repro_torch.examples.quickstart",
-             "repro_torch.examples.serve_with_plan"):
+             "repro_torch.examples.serve_with_plan",
+             "repro_torch.core.analytic", "repro_torch.models.layers",
+             "repro_torch.models.stacked", "repro_torch.serving.engine"):
     assert name in names, name
 print(len(names))
 """
