@@ -175,7 +175,20 @@ Phases, each of which stops the run with a nonzero exit on failure:
     the bf16 cache and then the int8 cache on the same tokens: ms per step
     (host clock, synced), peak memory, the caches' bytes and the largest
     logit difference of the int8 run from the bf16 run.
-(v) the total seconds and the card's name and power limit again, a JSON
+(v) tensor parallelism: ``train.main`` on full tinyllama-1.1b (batch 4 x
+    seq 2048, 1 warm-up and 3 timed steps) with ``--mesh single`` (a (1,
+    1) ``("data", "model")`` mesh in a one-rank NCCL group, ``layout
+    "tp"``: the tensor-parallel layers, the vocab-parallel embedding and
+    cross-entropy, the model group's collectives at degree 1) against
+    ``--mesh dp``, both through a strategy that mixes fused buckets with
+    unfused ``ar`` and ``rs_ag`` ones.  The counters are zeroed just before
+    each run and read just after: each sync kernel and collective ran as
+    often as the strategy implies in both.  Printed: both layouts' losses
+    and gradient norms and their relative gaps (the vocab-parallel CE
+    runs its head GEMM in f32, the plain one in bf16: the gaps must stay
+    under ``TP_LOSS_RTOL`` and ``TP_GNORM_RTOL``), step times, peak
+    memory, and the model group's collective calls.
+(w) the total seconds and the card's name and power limit again, a JSON
     line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
@@ -271,6 +284,14 @@ LAYERS_LOSS_RTOL, LAYERS_GNORM_RTOL = 1e-3, 1e-2
 # the serving-plan phase: the cluster it prices (one card's TP group, so
 # the priced deployment is the one the card enacts)
 SERVE_PLAN_TP = 1
+# the tensor-parallel phase: steps (the first a warm-up), and the largest
+# relative gaps allowed between the tp and dp layouts' losses and gradient
+# norms on the same weights and batches.  Only the cross-entropy's head
+# GEMM differs at degree 1 (f32 against bf16 logits, about 1e-3 in the
+# loss); a wrong vocab slice, mask or reduction moves them by their own
+# scale.
+TP_STEPS = 4
+TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-2, 2e-2
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -1234,6 +1255,58 @@ def phase_unfused_buckets(dev, tmp: str, strat, leaves) -> tuple[dict, int]:
     # on the same gradients (at dp=1 both are exact casts)
     check_sync(dev, mixed, B1_CHECK_STEPS, B1_BATCH, B1_SEQ)
     return res, launches["bucket_pack"]
+
+
+def phase_tensor_parallel(tmp: str, strat, leaves) -> None:
+    """(v): ``--mesh single`` (layout "tp" at degree 1) against ``--mesh
+    dp`` on full tinyllama-1.1b, each run's sync kernels and collectives
+    counted, losses, gradient norms, step times and peaks printed."""
+    mixed = _mixed_strategy(strat)
+    path = os.path.join(tmp, "tp.json")
+    mixed.save(path)
+    want, calls = implied_counts(mixed, leaves, TP_STEPS)
+    runs = {}
+    for mesh in ("dp", "single"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        TS.reset_collectives()
+        out = TRAIN.main(["--arch", ARCH, "--steps", str(TP_STEPS),
+                          "--batch", str(BATCH), "--seq", str(SEQ),
+                          "--strategy-file", path, "--log-every", "100",
+                          "--device", "cuda", "--mesh", mesh])
+        launches = {name: getattr(K, name).launches for name in want}
+        coll = dict(TS.COLLECTIVES)
+        if launches != want or coll != calls:
+            raise AssertionError(f"--mesh {mesh}: launches {launches}, "
+                                 f"collectives {coll}; want {want}, {calls}")
+        vals = out["losses"] + out["grad_norms"]
+        if len(out["losses"]) != TP_STEPS or not all(
+                math.isfinite(v) for v in vals):
+            raise AssertionError(f"--mesh {mesh}: {out}")
+        runs[mesh] = dict(out, launches=launches, collectives=coll,
+                          peak=torch.cuda.max_memory_allocated(),
+                          step_s=statistics.median(out["step_seconds"][1:]))
+    dp, tp = runs["dp"], runs["single"]
+    gaps = {k: [abs(a - b) / abs(b) for a, b in zip(tp[k], dp[k])]
+            for k in ("losses", "grad_norms")}
+    for mesh, r in runs.items():
+        print(f"tensor parallel {ARCH} --mesh {mesh} (batch {BATCH} x seq "
+              f"{SEQ}): losses {r['losses']}, grad norms {r['grad_norms']}; "
+              f"step {r['step_s'] * 1e3:.1f} ms (median of steps "
+              f"2..{TP_STEPS}; first {r['step_seconds'][0] * 1e3:.1f} ms), "
+              f"max_memory_allocated {r['peak'] / 2**30:.2f} GiB; launches "
+              f"{r['launches']}; collectives {r['collectives']}; model "
+              f"group's collectives {r['tp_collectives']}")
+    print(f"tensor parallel: relative gaps tp against dp, losses "
+          f"{['%.2e' % g for g in gaps['losses']]}, grad norms "
+          f"{['%.2e' % g for g in gaps['grad_norms']]}; step "
+          f"{tp['step_s'] / dp['step_s']:.4f}x, peak "
+          f"{tp['peak'] / dp['peak']:.4f}x; card {card_line()}")
+    if max(gaps["losses"]) > TP_LOSS_RTOL or \
+            max(gaps["grad_norms"]) > TP_GNORM_RTOL:
+        raise AssertionError(f"tp against dp: relative gaps {gaps} over "
+                             f"{TP_LOSS_RTOL} / {TP_GNORM_RTOL}")
 
 
 def phase_search(dev, tmp: str, leaves) -> tuple[float, float]:
@@ -2389,6 +2462,7 @@ def main() -> int:
             dev, tmp, strat, leaves)
         err, step_s = phase_search(dev, tmp, leaves)
         err_gnn = phase_estimator(dev, tmp, leaves, step_s)
+        phase_tensor_parallel(tmp, strat, leaves)
         res["bucket_pack"]["max_abs_err"] = max(
             res["bucket_pack"]["max_abs_err"], err, err_gnn)
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
-"""DisCo-enacted data-parallel train step over ``torch.distributed`` (port
-of ``repro/distributed/train_step.py``, mode ``ddp_tp`` with
-``layout="dp"``).
+"""DisCo-enacted train step over ``torch.distributed`` (port of
+``repro/distributed/train_step.py``, mode ``ddp_tp`` with ``layout="dp"``
+or, for dense decoders, ``layout="tp"`` on a ``("data", "model")`` mesh,
+each with optional ZeRO-1 moments).
 
 Gradient synchronisation is explicit: the leaves are partitioned into the
 buckets of a searched :class:`GradSyncStrategy`, and each bucket is
@@ -48,6 +49,9 @@ from ..kernels import ops as K
 from ..kernels.ref import chunk_cuts
 from ..models.config import ModelConfig
 from ..optim import adamw, apply_updates, clip_by_global_norm
+from ..optim import zero1 as zero1_opt
+from . import sharding as SH
+from . import tensor_parallel as TP
 
 COLLECTIVES = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
 
@@ -296,23 +300,60 @@ def build_train_step(
     lr: float = 3e-4,
     loss_fn: Optional[Callable] = None,
     group=None,
+    mesh=None,
+    zero1: bool = False,
 ) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` is the parameter tree, updated in place;
-    ``batch`` is the global batch, of which each rank of ``group`` takes
-    its rows.  Only the reference's fully data-parallel mode (``ddp_tp``
-    with ``layout="dp"``) is ported."""
-    if mode != "ddp_tp" or layout != "dp":
+    ``batch`` is the global batch, of which each data rank takes its rows.
+
+    ``layout="dp"``: every rank of ``group`` (default: the world) is a
+    data rank holding the whole tree.  ``layout="tp"``: ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`) is a ``("data", "model")``
+    mesh; ``params`` holds this rank's slices of a dense decoder
+    (:func:`repro_torch.distributed.tensor_parallel.shard_params` with
+    ``step.tp``), the model group runs the tensor-parallel forward and
+    backward, and the data group syncs the local slices' gradients bucket
+    by bucket (the bucket indices are the tree's; each bucket's bytes
+    shrink by the slicing), as the reference's Megatron-DDP style sync
+    does.  ``zero1=True`` keeps each AdamW moment's slice along the leaf's
+    largest free dim that the data group's size divides (the reference's
+    ZeRO-1 rule; a moment still whole in ``opt_state`` is sliced on the
+    way in) and all-gathers the updated parameter slices over the data
+    group.  ``mode="fsdp_tp"`` (ZeRO-3) is not ported."""
+    if mode == "fsdp_tp":
         raise NotImplementedError(
-            f"mode={mode!r} layout={layout!r}: only mode='ddp_tp' with "
-            f"layout='dp' is ported")
+            "mode='fsdp_tp' (ZeRO-3) is not ported yet (ROADMAP A4)")
+    if mode != "ddp_tp" or layout not in ("dp", "tp"):
+        raise ValueError(f"mode={mode!r} layout={layout!r}: the port has "
+                         f"mode 'ddp_tp' with layout 'dp' or 'tp'")
     opt_init, opt_update = optimizer or adamw(lr, weight_decay=0.01)
     if loss_fn is None:
         from ..models import stacked as ST
         loss_fn = ST.loss_fn
+    tp = None
+    if layout == "tp":
+        if mesh is None:
+            raise ValueError("layout='tp' needs a ('data', 'model') mesh")
+        tp = TP.TPContext(cfg, mesh.model)
+        group = mesh.data
+    z1 = None   # ZeRO-1's (update, apply, shard_state), made at step 1
+
+    def zero1_of(leaves):
+        """ZeRO-1 on ``leaves``: the reference's rule on each leaf's spec.
+        A model-sharded dim is not free, and a free dim has its full size
+        in the local slice, so the local shapes give the rule's answer."""
+        specs = (tp.specs if tp is not None
+                 else [(None,) * p.dim() for p in leaves])
+        data = {"data": dist.get_world_size(group)}
+        dims = [SH.spec_dim(SH.zero1_spec(p.shape, sp, data), "data")
+                for p, sp in zip(leaves, specs)]
+        return zero1_opt(opt_update, dims, group)
 
     def local_loss(params, batch):
-        return loss_fn(params, cfg, batch, remat=remat)
+        if tp is None:
+            return loss_fn(params, cfg, batch, remat=remat)
+        return loss_fn(params, cfg, batch, remat=remat, tp=tp)
 
     def grads_of(params, leaves, batch):
         if grad_accum > 1:
@@ -333,6 +374,7 @@ def build_train_step(
         return loss.detach(), [p.grad for p in leaves]
 
     def step(params, opt_state, batch):
+        nonlocal z1
         leaves = T.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -344,11 +386,17 @@ def build_train_step(
         grads = sync_grads(grads, strat, group)
         dist.all_reduce(loss, group=group)
         loss = loss / dp
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, tp)
         for p in leaves:
             p.grad = None
-        updates, opt_state = opt_update(grads, opt_state, leaves)
-        apply_updates(leaves, updates)
+        update, apply = opt_update, apply_updates
+        if zero1:
+            z1 = z1 or zero1_of(leaves)
+            update, apply, shard_state = z1
+            opt_state = shard_state(opt_state, leaves)
+        updates, opt_state = update(grads, opt_state, leaves)
+        apply(leaves, updates)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
+    step.tp = tp
     return step

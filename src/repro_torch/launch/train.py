@@ -17,6 +17,15 @@ runs the same deterministic search.
 One process per GPU: under ``torchrun`` the world size, rank and rendezvous
 come from the environment; otherwise the run is a group of one rank on a
 local TCP rendezvous.  NCCL on CUDA, gloo on the CPU.
+
+``--mesh`` picks the layout.  ``dp`` (the default): every rank is a data
+rank holding the whole model (the reference's ``layout="dp"``).
+``debug``: the reference's default, a (4, 2) ``("data", "model")`` mesh
+on 8 ranks with ``layout="tp"`` (dense decoders).  ``single``: a (1, 1)
+mesh with ``layout="tp"``, one rank.  The search prices the unsharded
+step on the data ranks, as the reference's does.  Checkpoints hold the
+full tree under every mesh (the slices are gathered before a save and
+taken again after a restore), so a run restores under another mesh.
 """
 from __future__ import annotations
 
@@ -37,9 +46,13 @@ from ..cluster import list_presets
 from ..configs import ARCHS, get_config
 from ..data.pipeline import SyntheticLMDataset, tokens_to_tensor
 from ..device import resolve_device
+from ..distributed import tensor_parallel as TP
 from ..distributed.train_step import GradSyncStrategy, build_train_step
 from ..models import stacked as ST
 from ..optim import OptState, adamw, linear_warmup_cosine
+from .mesh import make_debug_mesh
+
+MESHES = {"debug": (4, 2), "single": (1, 1)}   # ("data", "model") shapes
 
 
 def _free_port() -> int:
@@ -87,11 +100,16 @@ def search_strategy(cfg, batch: int, seq: int, n_devices: int,
     return plan
 
 
-def _ckpt_tree(params, opt: OptState):
+def _ckpt_tree(params, opt: OptState, tp=None):
     """(params, opt) in the reference's checkpoint structure: moments
-    shaped like the parameter tree, so keypaths match."""
-    return (params, OptState(T.unflatten(params, opt.mu),
-                             T.unflatten(params, opt.nu), opt.count))
+    shaped like the parameter tree, so keypaths match.  Under a
+    tensor-parallel context ``tp`` the slices are gathered into the full
+    tree (every rank of the model group takes part)."""
+    mu, nu = opt.mu, opt.nu
+    if tp is not None:
+        params, mu, nu = (TP.gather_params(t, tp) for t in (params, mu, nu))
+    return (params, OptState(T.unflatten(params, mu),
+                             T.unflatten(params, nu), opt.count))
 
 
 def parse_args(argv=None):
@@ -121,6 +139,10 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (one GPU per process) or cpu")
+    ap.add_argument("--mesh", default="dp", choices=["dp", *MESHES],
+                    help="dp = every rank a data rank (layout 'dp'); "
+                         "debug = (4, 2) data x model mesh on 8 ranks, "
+                         "single = (1, 1) mesh, both layout 'tp'")
     args = ap.parse_args(argv)
     if args.plan_out and (args.strategy != "auto" or args.strategy_file):
         ap.error("--plan-out saves a searched Plan: it needs --strategy "
@@ -129,9 +151,11 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Train; returns ``{"losses", "grad_norms", "step_seconds", "plan"}``
-    (per-step host times, each ending in a device sync; the searched Plan
-    under ``--strategy auto``, else None)."""
+    """Train; returns ``{"losses", "grad_norms", "step_seconds", "plan",
+    "tp_collectives"}`` (per-step host times, each ending in a device
+    sync; the searched Plan under ``--strategy auto``, else None; the
+    model group's collective calls under a ``--mesh`` with a ``model``
+    dim, else None)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda" and device.index is None:
@@ -151,19 +175,21 @@ def _train(args, device: torch.device) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.batch % world:
+    mesh = None
+    if args.mesh != "dp":
+        mesh = make_debug_mesh(MESHES[args.mesh], device=device.type)
+    dp = world if mesh is None else mesh.shape["data"]
+    if args.batch % dp:
         raise ValueError(f"--batch {args.batch} does not split over "
-                         f"{world} ranks")
+                         f"{dp} data ranks")
 
     params = ST.init_params(cfg, seed=args.seed, device=device)
-    leaves = ST.leaves(params)
-    n_params = sum(p.numel() for p in leaves)
-    log(f"arch={cfg.name} params={n_params / 1e6:.2f}M dp={world} "
-        f"device={device}")
+    n_params = sum(p.numel() for p in ST.leaves(params))
+    log(f"arch={cfg.name} params={n_params / 1e6:.2f}M "
+        f"mesh={mesh.shape if mesh else {'data': world}} device={device}")
 
     sched = linear_warmup_cosine(args.lr, warmup=20, total_steps=args.steps)
     opt_init, opt_update = adamw(sched, weight_decay=0.01)
-    opt = opt_init(leaves)
     ds = SyntheticLMDataset(cfg.vocab, args.seq, args.batch, seed=args.seed)
 
     plan = None
@@ -172,7 +198,7 @@ def _train(args, device: torch.device) -> dict:
         log(f"loaded strategy: {len(strat.buckets)} buckets")
     elif args.strategy == "auto":
         t0 = time.perf_counter()
-        plan = search_strategy(cfg, args.batch, args.seq, n_devices=world,
+        plan = search_strategy(cfg, args.batch, args.seq, n_devices=dp,
                                seed=args.seed, cluster=args.cluster)
         strat = plan.grad_sync(params)
         prov = plan.provenance
@@ -190,9 +216,15 @@ def _train(args, device: torch.device) -> dict:
     else:
         strat = GradSyncStrategy.per_tensor(params)
 
-    step_fn = build_train_step(cfg, mode="ddp_tp", layout="dp",
-                               strategy=strat,
+    # the buckets index the tree's leaves, whole or sliced
+    step_fn = build_train_step(cfg, mode="ddp_tp",
+                               layout="dp" if mesh is None else "tp",
+                               mesh=mesh, strategy=strat,
                                optimizer=(opt_init, opt_update), remat=True)
+    tp = step_fn.tp
+    if tp is not None:
+        params = TP.shard_params(params, tp)
+    opt = opt_init(ST.leaves(params))
 
     start = 0
     if args.ckpt_dir:
@@ -202,8 +234,11 @@ def _train(args, device: torch.device) -> dict:
         except FileNotFoundError:
             pass
         else:
-            opt = OptState(T.leaves(ckpt_opt.mu), T.leaves(ckpt_opt.nu),
-                           ckpt_opt.count)
+            mu, nu = T.leaves(ckpt_opt.mu), T.leaves(ckpt_opt.nu)
+            if tp is not None:
+                params, mu, nu = (TP.shard_params(t, tp)
+                                  for t in (params, mu, nu))
+            opt = OptState(mu, nu, ckpt_opt.count)
             log(f"resumed from step {start}")
 
     losses, gnorms, times = [], [], []
@@ -220,17 +255,21 @@ def _train(args, device: torch.device) -> dict:
         if step % args.log_every == 0 or step == args.steps - 1:
             log(f"step {step:5d}  loss {losses[-1]:.4f}  "
                 f"gnorm {gnorms[-1]:.3f}  {times[-1] * 1e3:.0f} ms/step")
-        if (args.ckpt_dir and rank == 0 and step > start
-                and step % args.ckpt_every == 0):
-            save_checkpoint(args.ckpt_dir, step, _ckpt_tree(params, opt))
-    if args.ckpt_dir and rank == 0:
-        save_checkpoint(args.ckpt_dir, args.steps, _ckpt_tree(params, opt))
+        if args.ckpt_dir and step > start and step % args.ckpt_every == 0:
+            tree = _ckpt_tree(params, opt, tp)
+            if rank == 0:
+                save_checkpoint(args.ckpt_dir, step, tree)
+    if args.ckpt_dir:
+        tree = _ckpt_tree(params, opt, tp)
+        if rank == 0:
+            save_checkpoint(args.ckpt_dir, args.steps, tree)
     if losses:
         first, last = np.mean(losses[:10]), np.mean(losses[-10:])
         log(f"loss: first10 {first:.4f} -> last10 {last:.4f} "
             f"({'improved' if last < first else 'NOT improved'})")
     return {"losses": losses, "grad_norms": gnorms, "step_seconds": times,
-            "plan": plan}
+            "plan": plan,
+            "tp_collectives": None if tp is None else dict(tp.calls)}
 
 
 if __name__ == "__main__":

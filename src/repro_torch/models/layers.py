@@ -225,14 +225,17 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
                   cache: Optional[dict] = None,
                   pos: Optional[torch.Tensor] = None,
                   window: Optional[int] = None, use_flash: bool = False,
-                  return_cache: bool = False, cache_len: int = 0):
+                  return_cache: bool = False, cache_len: int = 0, tp=None):
     """Self-attention.  Train/prefill when ``cache`` is None (optionally
     returning a fresh cache of length ``cache_len``); decode when ``cache``
     and ``pos`` are given (x is (B,1,D); ``pos`` a scalar or one position
     per row, and ``positions`` (1,) or (B,1) to match).  Decode writes the
     new k/v into ``cache`` in place and returns it; the reference returns an
     updated copy.  Returns ``out``, or ``(out, cache)`` when a cache is
-    given or asked for."""
+    given or asked for.  With a tensor-parallel context ``tp`` (training
+    only) ``p`` holds this rank's slices: see :func:`_attention_tp`."""
+    if tp is not None and tp.dim("attn", "wq") is not None:
+        return _attention_tp(p, cfg, x, positions, tp, window)
     B, S, D = x.shape
     hd = cfg.hd
     q = x @ p["wq"].to(x.dtype)
@@ -303,6 +306,70 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
             new_cache = {"k": ck, "v": cv}
     out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
     return (out, new_cache) if (return_cache or cache is not None) else out
+
+
+def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window):
+    """Tensor-parallel attention over the ``model`` group of ``tp``, by the
+    reference's sharding rules (``distributed/sharding.py``).
+
+    Aligned query heads (``n_heads % m == 0``): ``wq`` is column-sharded,
+    so this rank computes its ``n_heads / m`` heads and ``wo``,
+    row-sharded, gives partial sums that ``reduce`` adds up.  Its heads
+    read their own KV heads: local ones when ``wk``/``wv`` are
+    column-sharded too, else those they map to in the replicated k and v.
+    Unaligned heads: ``wq`` is sharded on its input dim (a partial q,
+    reduced), k and v are replicated, every rank attends with all heads,
+    and ``wo``, sharded on its output dim, gives output columns that
+    ``gather`` joins.  Biases are replicated: a rank adds its heads' slice."""
+    B, S, D = x.shape
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    dt = x.dtype
+
+    def proj(inp, name, bias_slice):
+        out = inp @ p[name].to(dt)
+        if cfg.qkv_bias:
+            b = p["b" + name[1]]
+            out = out + (tp.local(tp.copy(b), -1) if bias_slice else b).to(dt)
+        return out
+
+    if tp.dim("attn", "wq") == 0:
+        # unaligned: q from this rank's slice of the input dim, summed
+        xq = tp.local(tp.copy(x), -1)
+        q = tp.reduce(xq @ p["wq"].to(dt))
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(dt)
+        k, v = proj(x, "wk", False), proj(x, "wv", False)
+        q = apply_rope(q.reshape(B, S, H, hd), positions, cfg)
+        k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg)
+        out = sdpa(q, k, v.reshape(B, S, KV, hd), None, window=window)
+        out = tp.copy(out.reshape(B, S, H * hd)) @ p["wo"].to(dt)
+        return tp.gather(out, -1)
+
+    Hl = H // tp.size
+    xs = tp.copy(x)
+    q = apply_rope(proj(xs, "wq", True).reshape(B, S, Hl, hd), positions,
+                   cfg)
+    if tp.dim("attn", "wk") is not None:
+        KVl = KV // tp.size
+        k, v = proj(xs, "wk", True), proj(xs, "wv", True)
+    else:
+        # replicated k and v: this rank's heads read the KV heads they map
+        # to, and only those get a gradient here
+        k, v = tp.copy(proj(x, "wk", False)), tp.copy(proj(x, "wv", False))
+        G = H // KV
+        first = tp.rank * Hl
+        if Hl % G == 0:
+            KVl = Hl // G
+            k = k.reshape(B, S, KV, hd)[:, :, first // G:first // G + KVl]
+            v = v.reshape(B, S, KV, hd)[:, :, first // G:first // G + KVl]
+        else:
+            idx = torch.arange(first, first + Hl, device=x.device) // G
+            KVl = Hl
+            k = k.reshape(B, S, KV, hd)[:, :, idx]
+            v = v.reshape(B, S, KV, hd)[:, :, idx]
+    k = apply_rope(k.reshape(B, S, KVl, hd), positions, cfg)
+    out = sdpa(q, k, v.reshape(B, S, KVl, hd), None, window=window)
+    return tp.reduce(out.reshape(B, S, Hl * hd) @ p["wo"].to(dt))
 
 
 def _row_positions(pos, B: int, device) -> torch.Tensor:
@@ -452,13 +519,20 @@ def _act(cfg: ModelConfig, x):
     return F.relu(x)
 
 
-def mlp_fwd(p: dict, cfg: ModelConfig, x):
+def mlp_fwd(p: dict, cfg: ModelConfig, x, tp=None):
+    """The FFN.  With a tensor-parallel context ``tp`` whose rules shard
+    it, ``w_up``/``w_gate`` are column-sharded and ``w_down`` row-sharded:
+    this rank's FFN columns give partial sums that ``tp.reduce`` adds."""
+    sharded = tp is not None and tp.dim("mlp", "w_up") is not None
+    if sharded:
+        x = tp.copy(x)
     up = x @ p["w_up"].to(x.dtype)
     if cfg.glu:
         h = _act(cfg, x @ p["w_gate"].to(x.dtype)) * up
     else:
         h = _act(cfg, up)
-    return h @ p["w_down"].to(x.dtype)
+    out = h @ p["w_down"].to(x.dtype)
+    return tp.reduce(out) if sharded else out
 
 
 # --------------------------------------------------------------------- MoE

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import tree as T
 from . import layers as L
 from . import recurrent as R
+from . import vocab_parallel as VP
 from .config import ModelConfig
 
 
@@ -72,18 +73,35 @@ def _sinusoid(S: int, D: int, dtype, device) -> torch.Tensor:
     return torch.from_numpy(out).to(device=device, dtype=dtype)
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    x = params["embed"][tokens]
+def _embed(params, cfg: ModelConfig, tokens, tp=None):
+    """The token embedding; with a tensor-parallel context ``tp`` whose
+    rules shard the vocab, the vocab-parallel lookup over this rank's
+    rows."""
+    if tp is not None and tp.dim("embed") is not None:
+        x = VP.embed_lookup(params["embed"], tokens, tp)
+    else:
+        x = params["embed"][tokens]
     if cfg.tie_embeddings:   # gemma-family scaling
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
 
 
-def _unembed(params, cfg: ModelConfig, x):
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+def _head_dim(cfg: ModelConfig, tp):
+    """The model-sharded dim of the LM head (the embedding when tied)
+    under ``tp``, or None."""
+    if tp is None:
+        return None
+    return tp.dim("embed" if cfg.tie_embeddings else "lm_head")
+
+
+def _unembed(params, cfg: ModelConfig, x, tp=None):
+    """Logits; under a ``tp`` that shards the head, this rank's vocab
+    columns joined over the group."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if _head_dim(cfg, tp) is not None:
+        return tp.gather(tp.copy(x) @ head, -1)
+    return x @ head
 
 
 def _sinusoid_positions(cfg: ModelConfig) -> bool:
@@ -94,10 +112,10 @@ def _sinusoid_positions(cfg: ModelConfig) -> bool:
             and cfg.recurrent is None)
 
 
-def _embed_positions(params, cfg: ModelConfig, tokens):
+def _embed_positions(params, cfg: ModelConfig, tokens, tp=None):
     """Embedded tokens (B, S, D), with the sinusoid added where
     :func:`_sinusoid_positions` says, and the positions (S,)."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp)
     S = x.shape[1]
     if _sinusoid_positions(cfg):
         x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
@@ -125,7 +143,7 @@ def _decode_embed(params, cfg: ModelConfig, token, pos):
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
                return_cache: bool = False, cache_len: int = 0,
                use_kernels: bool = False, li: int = 0,
-               with_aux: bool = False, route_rows: bool = False):
+               with_aux: bool = False, route_rows: bool = False, tp=None):
     """Block ``li`` (pre-norm attention, MLA or RG-LRU block, then pre-norm
     MLP or routed experts; or pre-norm RWKV time mix, then pre-norm channel
     mix).  Returns x, or (x, new_cache) when a cache is given or asked for,
@@ -134,7 +152,8 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     elsewhere).  ``use_kernels`` runs attention through the flash-attention
     kernel (never MLA, as in the reference) and the RG-LRU and WKV-6
     recurrences through their kernels; ``route_rows`` routes each batch
-    row's tokens through the experts as a batch of their own."""
+    row's tokens through the experts as a batch of their own.  ``tp``, a
+    tensor-parallel context, runs a dense block on this rank's slices."""
     want_cache = return_cache or cache is not None
 
     def done(x, new_cache, aux=None):
@@ -165,7 +184,8 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     else:
         r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache,
                             pos=pos, window=cfg.window, use_flash=use_kernels,
-                            return_cache=return_cache, cache_len=cache_len)
+                            return_cache=return_cache, cache_len=cache_len,
+                            tp=tp)
     mix_out, new_cache = r if want_cache else (r, None)
     x = x + mix_out
     h2 = L.norm_fwd(p["ln2"], cfg, x)
@@ -173,7 +193,7 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     if cfg.is_moe_layer(li):
         ff, aux = L.moe_fwd(p["moe"], cfg, h2, route_rows=route_rows)
     else:
-        ff = L.mlp_fwd(p["mlp"], cfg, h2)
+        ff = L.mlp_fwd(p["mlp"], cfg, h2, tp)
     return done(x + ff, new_cache, aux)
 
 

@@ -46,6 +46,7 @@ from .. import tree as T
 from ..device import resolve_device
 from . import layers as L
 from . import model as M
+from . import vocab_parallel as VP
 from .config import ModelConfig
 from .regions import scan_region
 
@@ -147,15 +148,18 @@ _embed_positions = M._embed_positions
 
 
 def hidden_forward(params, cfg: ModelConfig, tokens, *,
-                   use_kernels: bool = False, remat: bool = False):
+                   use_kernels: bool = False, remat: bool = False, tp=None):
     """Everything before the unembed: (B, S) tokens -> (B, S, D) normed
-    hidden states, and the layers' summed MoE aux loss (0 without MoE)."""
-    x, positions = _embed_positions(params, cfg, tokens)
+    hidden states, and the layers' summed MoE aux loss (0 without MoE).
+    With a tensor-parallel context ``tp``, ``params`` holds this rank's
+    slices (:mod:`repro_torch.distributed.tensor_parallel`) and the
+    hidden states come out whole on every rank of its group."""
+    x, positions = _embed_positions(params, cfg, tokens, tp)
 
     def block(p, x, li):
         x, aux, _ = M._layer_fwd(p, cfg, x, positions,
                                  use_kernels=use_kernels, li=li,
-                                 with_aux=True)
+                                 with_aux=True, tp=tp)
         return x, aux
 
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -174,11 +178,12 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *,
 
 
 def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
-            remat: bool = False):
-    """Full-sequence logits (B, S, vocab)."""
+            remat: bool = False, tp=None):
+    """Full-sequence logits (B, S, vocab); under a tensor-parallel context
+    ``tp``, whole on every rank of its group."""
     x, _ = hidden_forward(params, cfg, tokens, use_kernels=use_kernels,
-                          remat=remat)
-    return M._unembed(params, cfg, x)
+                          remat=remat, tp=tp)
+    return M._unembed(params, cfg, x, tp)
 
 
 _CE_CHUNK = 512
@@ -193,12 +198,23 @@ def _ce_chunk(params, cfg: ModelConfig, xc, tc, wc):
     return ((logz - gold) * wc).sum(), wc.sum()
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
+def _ce_chunk_vp(head, cfg: ModelConfig, tp, xc, tc, wc):
+    """:func:`_ce_chunk` vocab-parallel over ``tp``'s group, on f32 input
+    as the reference passes it (its head GEMM runs in f32)."""
+    return VP.ce_chunk(xc.float(), head, tc, wc, tp,
+                       transpose_head=cfg.tie_embeddings)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
+            tp=None):
     """Next-token CE computed in sequence chunks with an f32 logsumexp —
     the full (B, S, V) logits tensor is never materialised — plus the MoE
-    aux loss, added after the chunks as in the reference."""
+    aux loss, added after the chunks as in the reference.  With a
+    tensor-parallel context ``tp`` whose rules shard the vocab, the chunks
+    run vocab-parallel over its group, as the reference's do whenever its
+    mesh has a ``model`` dim, even of size 1."""
     tokens = batch["tokens"]
-    x, aux = hidden_forward(params, cfg, tokens, remat=remat)
+    x, aux = hidden_forward(params, cfg, tokens, remat=remat, tp=tp)
     B, S, D = x.shape
     dev = x.device
     targets = torch.cat(
@@ -212,14 +228,20 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
         chunk -= 1
     ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
     cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    if M._head_dim(cfg, tp) is not None:
+        fn = _ce_chunk_vp
+        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        lead = (head, cfg, tp)
+    else:
+        fn, lead = _ce_chunk, (params, cfg)
     with scan_region():    # one scan in the reference
         for c in range(S // chunk):
             sl = slice(c * chunk, (c + 1) * chunk)
-            args = (params, cfg, x[:, sl], targets[:, sl], weights[:, sl])
+            args = (*lead, x[:, sl], targets[:, sl], weights[:, sl])
             if remat and torch.is_grad_enabled():
-                ce, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+                ce, n = checkpoint(fn, *args, use_reentrant=False)
             else:
-                ce, n = _ce_chunk(*args)
+                ce, n = fn(*args)
             ce_sum = ce_sum + ce
             cnt = cnt + n
     return ce_sum / torch.clamp(cnt, min=1.0) + aux

@@ -19,7 +19,9 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..distributed.tensor_parallel import gather_leaf
 from ..kernels import ops as K
 
 
@@ -51,14 +53,28 @@ def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
     return fn
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
+def clip_by_global_norm(grads: list, max_norm: float, tp=None):
     """Scale ``grads`` to global f32 norm at most ``max_norm``.  Returns
     (f32 clipped grads, norm).  Each gradient that is not f32 is cast up
     first by the convert-copy kernel's wrapper, as the reference's
-    ``g * scale`` promotes a bf16 gradient."""
+    ``g * scale`` promotes a bf16 gradient.  With a tensor-parallel
+    context ``tp`` the gradients are this rank's slices: the squares of
+    the model-sharded leaves are summed over its group, and each
+    replicated leaf, equal on every rank, counts once."""
     g32 = [g if g.dtype == torch.float32 else K.convert_copy(g, torch.float32)
            for g in grads]
-    gnorm = torch.sqrt(sum(g.square().sum() for g in g32))
+    if tp is None:
+        gnorm = torch.sqrt(sum(g.square().sum() for g in g32))
+    else:
+        sharded = torch.zeros((), device=g32[0].device)
+        replicated = torch.zeros((), device=g32[0].device)
+        for g, d in zip(g32, tp.dims):
+            if d is None:
+                replicated = replicated + g.square().sum()
+            else:
+                sharded = sharded + g.square().sum()
+        tp.all_reduce(sharded)
+        gnorm = torch.sqrt(sharded + replicated)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return [g * scale for g in g32], gnorm
 
@@ -92,6 +108,46 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
                                  torch.tensor(step + 1, dtype=torch.int32))
 
     return init, update
+
+
+def zero1(update, dims: list, group):
+    """ZeRO-1 over the data-parallel ``group`` for an optimizer's
+    ``update``: each leaf with a dim in ``dims`` (None: none) keeps only
+    this rank's slice of its moments along that dim, and its update covers
+    only the matching slice of the parameter.  Returns ``(update, apply,
+    shard_state)``: ``apply(params, updates)`` writes the updated slices
+    and all-gathers them over the group; ``shard_state(state, params)``
+    cuts each moment that is still whole to this rank's slice.  The
+    optimizer must be elementwise, as AdamW is: the parameters then come
+    out bit-equal to the unsharded update's."""
+    dp, rank = dist.get_world_size(group), dist.get_rank(group)
+
+    def piece(t, d):
+        if d is None:
+            return t
+        n = t.shape[d] // dp
+        return t.narrow(d, rank * n, n)
+
+    def z_update(grads: list, state, params: list):
+        return update([piece(g, d) for g, d in zip(grads, dims)], state,
+                      [piece(p, d) for p, d in zip(params, dims)])
+
+    @torch.no_grad()
+    def z_apply(params: list, updates: list) -> list:
+        apply_updates([piece(p, d) for p, d in zip(params, dims)], updates)
+        for p, d in zip(params, dims):
+            if d is not None:
+                p.copy_(gather_leaf(piece(p, d), d, group))
+        return params
+
+    def shard_state(state: OptState, params: list) -> OptState:
+        def cut(moments):
+            return [piece(m, d).clone()
+                    if d is not None and m.shape == p.shape else m
+                    for m, p, d in zip(moments, params, dims)]
+        return OptState(cut(state.mu), cut(state.nu), state.count)
+
+    return z_update, z_apply, shard_state
 
 
 def sgd(lr: float | Callable = 1e-2, momentum: float = 0.0):

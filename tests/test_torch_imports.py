@@ -1,8 +1,9 @@
 """``repro_torch`` and every one of its modules import with ``jax`` and the
 reference package ``repro`` blocked, as does ``chip_smoke.py``: the port
 keeps its own copies of what it needs from the reference.  Among them the
-serving plan, the examples, the analytic cost model and the MLA, MoE and
-int8-cache model code."""
+serving plan, the examples, the analytic cost model, the MLA, MoE and
+int8-cache model code, and the tensor-parallel layout: the sharding rules,
+the vocab-parallel embedding and cross-entropy and the mesh."""
 import os
 import subprocess
 import sys
@@ -36,7 +37,10 @@ assert not leaked, leaked
 for name in ("repro_torch.serving.plan", "repro_torch.examples.quickstart",
              "repro_torch.examples.serve_with_plan",
              "repro_torch.core.analytic", "repro_torch.models.layers",
-             "repro_torch.models.stacked", "repro_torch.serving.engine"):
+             "repro_torch.models.stacked", "repro_torch.serving.engine",
+             "repro_torch.distributed.sharding",
+             "repro_torch.distributed.tensor_parallel",
+             "repro_torch.models.vocab_parallel", "repro_torch.launch.mesh"):
     assert name in names, name
 print(len(names))
 """
