@@ -188,7 +188,31 @@ Phases, each of which stops the run with a nonzero exit on failure:
     runs its head GEMM in f32, the plain one in bf16: the gaps must stay
     under ``TP_LOSS_RTOL`` and ``TP_GNORM_RTOL``), step times, peak
     memory, and the model group's collective calls.
-(w) the total seconds and the card's name and power limit again, a JSON
+(w) the VLM prefix decoder, full paligemma-3b (18 layers, d_model 2048,
+    8 heads over 1 KV head at hd 256, vocab 257216; weights drawn on the
+    card): flash attention against its plain version at its prefill
+    shapes (q (1,S,8,256), k and v (1,S,1,256), bf16, causal, S in 1, 129
+    and 2048, the patches counted in S), timed as in (c); ``prefill`` of
+    256 stub patch embeddings and 1792 tokens with the kernel against
+    ``prefill`` without it, both against f32 weights (last-token logits
+    and k/v caches within (k)'s tolerances and ``F32_PATHS_TOL``): one
+    flash launch per decoder layer (18), all on the tensor cores; that
+    prefill timed and traced (device busy time, flash's share); 16
+    ``decode_step``s from each of the two caches, logits within (k)'s
+    tolerance; then ``train.main --strategy auto --cluster h100_superpod``
+    at batch 4 x 2048 text tokens (the stubs in every batch) for 4 steps:
+    finite losses, the sync kernels and collectives the Plan implies,
+    trace plus search within 120 s; printed: prims by category, the
+    Plan's buckets, the steady step, text tokens/s and peak memory.
+(x) the encoder-decoder, full seamless-m4t-medium (12 encoder and 12
+    decoder layers, d_model 1024, 16 heads over 16 KV heads at hd 64,
+    vocab 256208; weights drawn on the card), as (w): flash at (1,S,16,64)
+    over 16 KV heads; prefill of 2048 tokens cross-attending the encoder's
+    output over 1024 stub frames (12 flash launches: the encoder's and
+    the cross-attention's attention are plain, non-causal, as in the
+    reference); 16 decode steps passing the encoder's output as
+    ``memory``; the launcher's search and 4 steps at batch 4 x 2048.
+(y) the total seconds and the card's name and power limit again, a JSON
     line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
@@ -248,6 +272,15 @@ RG_SEQS = (1, 129, 1024, 1984, 2048)      # RG-LRU and flash check lengths
 RWKV_ARCH = "rwkv6-3b"
 WKV_SEQS = (1, 129, 2048)                 # WKV-6 check lengths
 DS_ARCH = "deepseek-v2-lite-16b"
+VLM_ARCH, ENCDEC_ARCH = "paligemma-3b", "seamless-m4t-medium"
+# the multimodal phases: flash check lengths (paligemma's counting its
+# patches), the text tokens of the checked prefill (after paligemma's 256
+# patches, or cross-attending seamless's 1024 frames), the decode steps
+# from its cache, and the most seconds the two phases may take together
+MM_FLASH_SEQS = (1, 129, 2048)
+MM_PROMPT = {VLM_ARCH: 1792, ENCDEC_ARCH: 2048}
+MM_DECODE_STEPS = 16
+MM_LIMIT_S = 180.0
 # the deepseek phase: the cut depth and sequence of its loss-and-gradient
 # step, the requests of the full-width routing check (the cell's shortest
 # prompts), and the largest |logit| difference allowed between the engine's
@@ -1729,17 +1762,20 @@ def _union_us(spans) -> float:
     return busy
 
 
-def phase_prefill_trace(params, cfg, toks, cache_len: int) -> None:
+def phase_prefill_trace(params, cfg, toks, cache_len: int,
+                        **stubs) -> None:
     """Where one prefill through the kernels spends the device's time, from
     ``torch.profiler`` (printed only): the device's busy time (the union of
     its activities) and the union of each kernel family's launches, so a
-    launch that starts early and waits counts once."""
+    launch that starts early and waits counts once.  ``stubs``: the
+    prefill's ``prefix_emb`` or ``enc_frames``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         with torch.no_grad():
-            ST.prefill(params, cfg, toks, cache_len, use_kernels=True)
+            ST.prefill(params, cfg, toks, cache_len, use_kernels=True,
+                       **stubs)
         torch.cuda.synchronize()
     kern = [(e.name, e.time_range.start, e.time_range.end)
             for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2436,6 +2472,207 @@ def phase_int8(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _cache_diff(a, b) -> float:
+    """Largest |difference| over the leaves of two cache trees."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(T.leaves(a), T.leaves(b)))
+
+
+def _mm_prefill(dev, params, cfg, toks, stubs, cache_len: int) -> int:
+    """Prefill with the flash kernel against prefill without it, both
+    against f32 weights, as phase (k) holds tinyllama's; the kernel's
+    launches counted (one per decoder layer, on the tensor cores).  Then
+    16 decode steps from each of the two caches (passing the encoder's
+    output as ``memory`` where there is one), their logits within (k)'s
+    tolerance; the prefill timed and traced.  Returns the counted flash
+    launches."""
+    tol = TINYLLAMA
+    K.reset_launches()
+    with torch.no_grad():
+        lk, ck = ST.prefill(params, cfg, toks, cache_len, use_kernels=True,
+                            **stubs)
+        torch.cuda.synchronize()
+        launches = K.flash_attention.launches
+        tc = K.flash_attention.tc_launches
+        lp, cp = ST.prefill(params, cfg, toks, cache_len, **stubs)
+    if launches != cfg.n_layers or tc != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} prefill: {launches} flash "
+                             f"launches ({tc} on the tensor cores), want "
+                             f"{cfg.n_layers}")
+    if lk.shape != (1, cfg.vocab) or not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"{cfg.name} prefill: logits "
+                             f"{tuple(lk.shape)} not finite or misshapen")
+    params32 = T.map(lambda a: a.float(), params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    stubs32 = {k: v.float() for k, v in stubs.items()}
+    with torch.no_grad():
+        l32, c32 = ST.prefill(params32, cfg32, toks, cache_len, **stubs32)
+        lk32, ck32 = ST.prefill(params32, cfg32, toks, cache_len,
+                                use_kernels=True, **stubs32)
+    del params32
+    diff = float((lk.float() - lp.float()).abs().max())
+    dcache = _cache_diff(ck, cp)
+    e_k = float((lk.float() - l32).abs().max())
+    e_p = float((lp.float() - l32).abs().max())
+    e32 = max(float((lk32 - l32).abs().max()), _cache_diff(ck32, c32))
+    del c32, ck32
+    n_text = toks.shape[1]
+    what = " + ".join(f"{tuple(v.shape)} {k}" for k, v in stubs.items())
+    print(f"prefill {cfg.name} {n_text} tokens + {what}: {launches} flash "
+          f"launches, all on the tensor cores; max |logit| "
+          f"{float(lp.abs().max()):.3f}, kernel vs dense max |diff| logits "
+          f"{diff:.4e} (tolerance {tol.logit_tol}), k/v {dcache:.4e} "
+          f"(tolerance {tol.cache_tol}); against f32 weights: logits kernel "
+          f"{e_k:.4e}, dense {e_p:.4e}; f32 weights kernel vs dense max "
+          f"|diff| {e32:.4e} (tolerance {F32_PATHS_TOL}); argmax "
+          f"{int(lk.argmax())} / {int(lp.argmax())} / {int(l32.argmax())}")
+    if not (diff <= tol.logit_tol and dcache <= tol.cache_tol
+            and e32 <= F32_PATHS_TOL and e_k <= 2 * e_p):
+        raise AssertionError(f"{cfg.name} prefill: kernel against dense "
+                             f"{diff} (logits), {dcache} (k/v), f32 paths "
+                             f"{e32}, from f32 {e_k} against {e_p}")
+
+    # decode from both caches on the same tokens
+    memory = None
+    with torch.no_grad():
+        if "enc_frames" in stubs:
+            memory = ST.encode(params, cfg, stubs["enc_frames"])
+        gen = torch.Generator(device=dev).manual_seed(23)
+        nxt = torch.randint(0, cfg.vocab, (1, MM_DECODE_STEPS), device=dev,
+                            generator=gen)
+        start = cfg.vlm_prefix_len + n_text
+        worst, times = 0.0, []
+        for t in range(MM_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dk, ck = ST.decode_step(params, cfg, ck, nxt[:, t], start + t,
+                                    memory=memory)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            dp, cp = ST.decode_step(params, cfg, cp, nxt[:, t], start + t,
+                                    memory=memory)
+            if not bool(torch.isfinite(dk).all()):
+                raise AssertionError(f"{cfg.name} decode step {t}: logits "
+                                     f"not finite")
+            worst = max(worst, float((dk.float() - dp.float()).abs().max()))
+    print(f"decode {cfg.name}: {MM_DECODE_STEPS} steps from each cache at "
+          f"positions {start}..{start + MM_DECODE_STEPS - 1}"
+          f"{' with the encoder output as memory' if memory is not None else ''}"
+          f": max |logit diff| {worst:.4e} (tolerance {tol.logit_tol}); "
+          f"{statistics.median(times[1:]) * 1e3:.2f} ms a step (host clock, "
+          f"synced, median)")
+    if not worst <= tol.logit_tol:
+        raise AssertionError(f"{cfg.name} decode: the two caches' logits "
+                             f"differ by {worst} > {tol.logit_tol}")
+    del ck, cp, memory
+    torch.cuda.empty_cache()
+
+    for use_kernels in (True, False):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ST.prefill(params, cfg, toks, cache_len,
+                           use_kernels=use_kernels, **stubs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"prefill {cfg.name}, use_kernels={use_kernels}: "
+              f"{statistics.median(ms):.1f} ms (median of 3, host clock, "
+              f"synced)")
+    phase_prefill_trace(params, cfg, toks, cache_len, **stubs)
+    return launches
+
+
+def _mm_train(cfg) -> None:
+    """``train.main --strategy auto`` at batch 4 x 2048 text tokens for 4
+    steps (the stubs in every batch): finite losses, the sync kernels and
+    collectives the searched Plan implies, trace plus search within
+    ``SEARCH_LIMIT_S``."""
+    leaves = ST.leaves(meta_params(cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    TS.reset_collectives()
+    t0 = time.time()
+    out = TRAIN.main(["--arch", cfg.name, "--strategy", "auto", "--cluster",
+                      SEARCH_CLUSTER, "--batch", str(BATCH), "--seq",
+                      str(SEQ), "--steps", str(STEPS), "--log-every", "1",
+                      "--device", "cuda"])
+    wall = time.time() - t0
+    launches = {name: getattr(K, name).launches
+                for name in ("bucket_pack",) + SYNC_KERNELS}
+    coll = dict(TS.COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    plan, losses = out["plan"], out["losses"]
+    if len(losses) != STEPS or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"{cfg.name} training: losses {losses}")
+    if sorted(i for b in plan.buckets for i in b) != list(range(len(leaves))):
+        raise AssertionError(f"{cfg.name}: the Plan's buckets do not cover "
+                             f"the {len(leaves)} leaves once each")
+    want, calls = implied_counts(plan.grad_sync(leaves), leaves, STEPS)
+    if launches != want or coll != calls:
+        raise AssertionError(f"{cfg.name} training: launches {launches}, "
+                             f"collectives {coll}; the Plan implies {want}, "
+                             f"{calls}")
+    prov = plan.provenance
+    trace, search_s = prov["trace"], prov["search_wall_time"]
+    if trace["wall_time"] + search_s > SEARCH_LIMIT_S:
+        raise AssertionError(f"{cfg.name}: trace {trace['wall_time']:.1f} s "
+                             f"+ search {search_s:.1f} s exceed "
+                             f"{SEARCH_LIMIT_S} s")
+    step_s = statistics.median(out["step_seconds"][1:])
+    print(f"train {cfg.name} (batch {BATCH} x seq {SEQ} text tokens, "
+          f"--strategy auto on {SEARCH_CLUSTER}): {trace['prims']} prims "
+          f"{trace['by_category']}; trace {trace['wall_time']:.2f} s, search "
+          f"{search_s:.3f} s ({prov['steps']} steps, {prov['simulations']} "
+          f"simulations; simulated {prov['initial_cost'] * 1e3:.3f} -> "
+          f"{prov['best_cost'] * 1e3:.3f} ms); {_describe_buckets(plan)}")
+    print(f"train {cfg.name}: losses {[round(l, 4) for l in losses]}; step "
+          f"{step_s * 1e3:.1f} ms (median of steps 2..{STEPS}, host clock, "
+          f"synced), {BATCH * SEQ / step_s:.0f} text tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB; launches {launches}; collectives {coll} "
+          f"(as the Plan implies); launcher wall {wall:.1f} s (weights "
+          f"drawn on the host)")
+
+
+def phase_multimodal(dev, arch: str) -> tuple[float, int]:
+    """Phase (w) (paligemma-3b) or (x) (seamless-m4t-medium) at full
+    width: flash at the arch's attention shapes, prefill with and without
+    the kernel, decode from both caches, then training through the
+    launcher's search.  Returns flash's largest error against its plain
+    version and the checked prefill's flash launches."""
+    cfg = get_config(arch)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(24)
+    res = {S: _flash_path_shape(f"{arch} bf16 S={S}", *_flash_inputs(
+        gen, dev, S, S, H, KV, hd, torch.bfloat16)) for S in MM_FLASH_SEQS}
+    err = max(r["max_abs_err"] for r in res.values())
+
+    t1 = time.time()
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    torch.cuda.synchronize()
+    print(f"{arch}: {sum(p.numel() for p in ST.leaves(params)) / 1e9:.2f}B "
+          f"parameters in {len(ST.leaves(params))} leaves drawn on the card "
+          f"in {time.time() - t1:.1f} s")
+    toks = torch.randint(0, cfg.vocab, (1, MM_PROMPT[arch]), device=dev,
+                         generator=gen)
+    stubs = {}
+    if cfg.vlm_prefix_len:
+        stubs["prefix_emb"] = torch.randn(
+            (1, cfg.vlm_prefix_len, cfg.d_model), device=dev, generator=gen)
+    if cfg.encdec is not None:
+        stubs["enc_frames"] = torch.randn(
+            (1, cfg.encdec.enc_seq, cfg.encdec.frontend_dim), device=dev,
+            generator=gen)
+    launches = _mm_prefill(dev, params, cfg, toks, stubs, TINYLLAMA.cache_len)
+    del params
+    torch.cuda.empty_cache()
+    _mm_train(cfg)
+    torch.cuda.empty_cache()
+    return err, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2495,20 +2732,35 @@ def main() -> int:
         torch.cuda.empty_cache()
     served_ds = phase_deepseek(dev)
     phase_int8(dev)
+    t_mm = time.time()
+    mm_launches = {}
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        err, mm_launches[arch] = phase_multimodal(dev, arch)
+        res["flash_attention"]["max_abs_err"] = max(
+            res["flash_attention"]["max_abs_err"], err)
+    print(f"phases (w) and (x): {time.time() - t_mm:.1f} s (limit "
+          f"{MM_LIMIT_S} s)")
+    if time.time() - t_mm > MM_LIMIT_S:
+        raise AssertionError(f"phases (w) and (x) took "
+                             f"{time.time() - t_mm:.1f} s, over "
+                             f"{MM_LIMIT_S} s")
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
     if any(served_ds.values()):
         raise AssertionError(f"{DS_ARCH} serving launched {served_ds}")
     launches["flash_attention"] = (served["flash_attention"]
                                    + served_rg["flash_attention"]
                                    + flash_layers
-                                   + served_plan["flash_attention"])
+                                   + served_plan["flash_attention"]
+                                   + sum(mm_launches.values()))
     launches["rglru_scan"] = served_rg["rglru_scan"]
     launches["rwkv6_wkv"] = served_rwkv["rwkv6_wkv"]
     print(f"launches on the serving paths: flash_attention "
           f"{served['flash_attention']} ({ARCH}) + "
           f"{served_rg['flash_attention']} ({RG_ARCH}) + {flash_layers} "
           f"(per-layer prefill) + {served_plan['flash_attention']} "
-          f"({ARCH}, serving plan), rglru_scan "
+          f"({ARCH}, serving plan) + {mm_launches[VLM_ARCH]} ({VLM_ARCH} "
+          f"prefill) + {mm_launches[ENCDEC_ARCH]} ({ENCDEC_ARCH} prefill), "
+          f"rglru_scan "
           f"{served_rg['rglru_scan']} ({RG_ARCH}), rwkv6_wkv "
           f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH})")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],

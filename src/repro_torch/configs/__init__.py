@@ -1,13 +1,14 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-The dense, MLA + MoE (DeepSeek-V2), RG-LRU hybrid and RWKV-6 configs of
-the reference registry, copied with their published widths and sources;
-reduced smoke-test variants come from ``cfg.reduced()``.
+Every config of the reference registry -- dense, MLA + MoE (DeepSeek-V2),
+RG-LRU hybrid, RWKV-6, the VLM prefix decoder (PaliGemma) and the
+encoder-decoder (SeamlessM4T) -- copied with its published widths and
+source; reduced smoke-test variants come from ``cfg.reduced()``.
 """
 from __future__ import annotations
 
-from ..models.config import (MLAConfig, ModelConfig, MoEConfig,
-                             RecurrentConfig)
+from ..models.config import (EncDecConfig, MLAConfig, ModelConfig,
+                             MoEConfig, RecurrentConfig)
 
 _CONFIGS = {
     # arXiv:2401.02385 — Llama-2 architecture, small
@@ -82,6 +83,24 @@ _CONFIGS = {
         name="deepseek-coder-33b", arch_type="dense", n_layers=62,
         d_model=7168, n_heads=56, n_kv_heads=8, d_ff=19200, vocab=32256,
         source="arXiv:2401.14196"),
+    # Gemma-2B decoder behind a stub SigLIP tower: 256 patch embeddings
+    # (d_model wide) before the text tokens; MQA at hd 256, GeGLU, tied
+    # embeddings
+    "paligemma-3b": ModelConfig(
+        name="paligemma-3b", arch_type="vlm", n_layers=18, d_model=2048,
+        n_heads=8, n_kv_heads=1, head_dim=256, d_ff=16384, vocab=257216,
+        norm="rms", act="gelu", glu=True, tie_embeddings=True,
+        vlm_prefix_len=256, source="arXiv:2407.07726 (SigLIP + Gemma-2B)"),
+    # encoder-decoder text/unit backbone: 12 + 12 layers, LayerNorm, ReLU
+    # FFN, sinusoidal positions; the speech frontend is a stub giving 1024
+    # frame embeddings of 1024; vocab 256206 padded to 256208
+    "seamless-m4t-medium": ModelConfig(
+        name="seamless-m4t-medium", arch_type="audio", n_layers=12,
+        d_model=1024, n_heads=16, n_kv_heads=16, d_ff=4096, vocab=256208,
+        norm="layer", act="relu", glu=False, rope_frac=0.0,
+        encdec=EncDecConfig(n_enc_layers=12, enc_seq=1024,
+                            frontend_dim=1024),
+        source="arXiv:2308.11596 (SeamlessM4T-Medium)"),
 }
 
 ARCHS = tuple(_CONFIGS)

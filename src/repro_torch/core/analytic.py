@@ -91,6 +91,16 @@ def _per_token_forward_flops(cfg: ModelConfig, S: int, decode: bool) -> float:
         else:
             f += 2 * (3 if cfg.glu else 2) * d * cfg.d_ff
     f += 2 * d * cfg.vocab                          # unembed
+    if cfg.encdec is not None:
+        # encoder runs once per sequence; amortise per decoder token
+        enc = cfg.encdec
+        per_enc_tok = (2 * 4 * d * cfg.hd * cfg.n_heads
+                       + 2 * (3 if cfg.glu else 2) * d * cfg.d_ff
+                       + 4 * cfg.n_heads * cfg.hd * enc.enc_seq / 2)
+        f += per_enc_tok * enc.n_enc_layers * (enc.enc_seq / max(S, 1))
+        # cross attention per decoder layer
+        f += cfg.n_layers * (2 * 2 * d * cfg.hd * cfg.n_heads
+                             + 4 * cfg.n_heads * cfg.hd * enc.enc_seq)
     return f
 
 

@@ -2,7 +2,10 @@
 
 Traces the per-device forward and backward of a training step with
 ``make_fx`` into an aten-level fx graph, on meta tensors, so a trace of a
-full-width model spends no memory and no device time.  Each aten op becomes
+full-width model spends no memory and no device time.  The trace runs in
+fake mode: one ``FakeTensorMode`` holds every value, where a ``real``
+trace of meta tensors builds a new mode for each node's metadata.  Each
+aten op becomes
 one :class:`PrimOp` with the reference's categories and cost rules:
 
 * DOT (``mm``, ``bmm``, ``addmm``, ...): 2 * out * K FLOPs;
@@ -336,7 +339,8 @@ def trace_fx(loss_fn: Callable, params, batch
     regions: list = []
     token = RECORDER.set(regions)
     try:
-        gm = make_fx(step)(leaves, batch)
+        gm = make_fx(step, tracing_mode="fake",
+                     _allow_non_fake_inputs=True)(leaves, batch)
     finally:
         RECORDER.reset(token)
     return gm, regions

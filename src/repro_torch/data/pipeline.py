@@ -1,9 +1,11 @@
 """Deterministic synthetic LM data pipeline (port of
 ``repro/data/pipeline.py``).
 
-The token streams are numpy code copied from the reference, so the same
-``(seed, step)`` gives the same tokens in both packages; only
-``materialize_batch`` differs, returning torch tensors on a chosen device.
+The token streams and the stub frontends' embeddings are numpy code
+copied from the reference, so the same ``(seed, step)`` gives the same
+arrays in both packages; only ``materialize_batch`` differs, returning
+torch tensors on a chosen device, and ``make_batch_specs`` gives meta
+tensors where the reference gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -65,10 +67,45 @@ def tokens_to_tensor(tokens: np.ndarray, cfg: ModelConfig,
         (tokens % cfg.vocab).astype(np.int64)).to(device)
 
 
+def make_batch_specs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Meta tensors standing in for one training batch of this arch: the
+    tokens (int64, as every batch of the port carries them) and, where the
+    arch has them, the stub frontends' embeddings in the reference's
+    dtype, bf16: ``prefix_emb`` (batch, vlm_prefix_len, d_model) and
+    ``enc_frames`` (batch, enc_seq, frontend_dim)."""
+    specs = {"tokens": torch.empty((batch, seq), dtype=torch.int64,
+                                   device="meta")}
+    if cfg.vlm_prefix_len:
+        specs["prefix_emb"] = torch.empty(
+            (batch, cfg.vlm_prefix_len, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    if cfg.encdec is not None:
+        specs["enc_frames"] = torch.empty(
+            (batch, cfg.encdec.enc_seq, cfg.encdec.frontend_dim),
+            dtype=torch.bfloat16, device="meta")
+    return specs
+
+
 def materialize_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
                       device="cuda") -> dict:
     """The step-0 batch of ``SyntheticLMDataset(seed=seed)`` as torch
-    tensors: ``{"tokens": (batch, seq) int64}``."""
+    tensors: ``{"tokens": (batch, seq) int64}``, and the stub frontends'
+    f32 embeddings where the arch has them, drawn from
+    ``default_rng(seed + 1)`` in the reference's order (bitwise its
+    arrays): ``prefix_emb`` (batch, vlm_prefix_len, d_model), then
+    ``enc_frames`` (batch, enc_seq, frontend_dim)."""
+    dev = resolve_device(device)
     ds = SyntheticLMDataset(cfg.vocab, seq, batch, seed=seed)
-    return {"tokens": tokens_to_tensor(ds.global_step_batch(0), cfg,
-                                       resolve_device(device))}
+    out = {"tokens": tokens_to_tensor(ds.global_step_batch(0), cfg, dev)}
+    rng = np.random.default_rng(seed + 1)
+
+    def normal(shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    if cfg.vlm_prefix_len:
+        out["prefix_emb"] = normal((batch, cfg.vlm_prefix_len, cfg.d_model))
+    if cfg.encdec is not None:
+        out["enc_frames"] = normal((batch, cfg.encdec.enc_seq,
+                                    cfg.encdec.frontend_dim))
+    return out

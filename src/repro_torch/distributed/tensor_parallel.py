@@ -2,7 +2,7 @@
 part GSPMD plays in the reference's ``layout="tp"`` step.
 
 :class:`ModelGroup` holds the group and this rank's index in it;
-:class:`TPContext` adds the spec of every leaf of a dense decoder's
+:class:`TPContext` adds the spec of every leaf of a dense model's
 stacked parameter tree by the reference's rules
 (:mod:`repro_torch.distributed.sharding`).
 :func:`shard_params` takes a full tree to this rank's local slices and
@@ -41,9 +41,11 @@ from ..models.config import ModelConfig
 from . import sharding as SH
 
 def check_dense(cfg: ModelConfig) -> None:
-    """Tensor parallelism is ported for dense decoder blocks only: GQA/MQA
+    """Tensor parallelism is ported for dense attention blocks: GQA/MQA
     attention with or without qkv bias, partial rope, GLU or plain MLP,
-    RMS or layer norm, tied or untied embeddings."""
+    RMS or layer norm, tied or untied embeddings; the encoder-decoder's
+    encoder layers and cross-attention, and the VLM prefix (its
+    ``vision_proj`` replicated, as the encoder's ``in_proj``)."""
     if cfg.block != "attn" or cfg.moe is not None or cfg.recurrent is not None:
         raise NotImplementedError(
             f"tensor parallelism for {cfg.name} (block {cfg.block!r}"
@@ -112,12 +114,16 @@ class TPContext(ModelGroup):
             if names[:2] == ["groups", "0"]:
                 # a layer's view of a stacked leaf drops the layer dim
                 self._by_names[tuple(names[2:])] = None if d is None else d - 1
-            elif len(names) == 1:
+            elif names[:2] == ["encoder", "layers"]:
+                self._by_names[("encoder", *names[2:])] = (
+                    None if d is None else d - 1)
+            else:
                 self._by_names[tuple(names)] = d
 
     def dim(self, *names: str) -> Optional[int]:
-        """The model-sharded dim of a top-level leaf (``dim("embed")``) or
-        of a layer's leaf (``dim("attn", "wq")``), or None."""
+        """The model-sharded dim of a top-level leaf (``dim("embed")``), of
+        a decoder layer's leaf (``dim("attn", "wq")``) or of an encoder
+        layer's (``dim("encoder", "attn", "wq")``), or None."""
         return self._by_names[names]
 
 

@@ -4,7 +4,9 @@
         --steps 300 --batch 16 --seq 64 --strategy auto \\
         --cluster h100_superpod --plan-out plan.json
 
-Pipeline: synthetic data -> (with ``--strategy auto``) the DisCo search on
+Pipeline: synthetic data (with the VLM's patch embeddings and the
+encoder's frames, stub frontends, fixed across steps as in the reference)
+-> (with ``--strategy auto``) the DisCo search on
 the traced step -> the DisCo-enacted data-parallel train step (bucketed
 gradient sync over ``torch.distributed``) -> npz checkpoints.  The search
 traces the step on meta tensors of the training batch's shape, prices it
@@ -44,7 +46,8 @@ from .. import tree as T
 from ..checkpoint import restore_checkpoint, save_checkpoint
 from ..cluster import list_presets
 from ..configs import ARCHS, get_config
-from ..data.pipeline import SyntheticLMDataset, tokens_to_tensor
+from ..data.pipeline import (SyntheticLMDataset, materialize_batch,
+                             tokens_to_tensor)
 from ..device import resolve_device
 from ..distributed import tensor_parallel as TP
 from ..distributed.train_step import GradSyncStrategy, build_train_step
@@ -78,7 +81,8 @@ def init_process_group(device: torch.device) -> bool:
 
 def search_strategy(cfg, batch: int, seq: int, n_devices: int,
                     unchanged_limit: int = 80, seed: int = 0, cluster=None):
-    """Trace the step at the training batch's shape (on meta tensors) and
+    """Trace the step at the training batch's shape (on meta tensors, with
+    the stub frontends' embeddings where the arch has them) and
     run the DisCo search through the ``repro_torch.plan.compile`` facade.
     ``cluster`` (a preset name or ClusterSpec) prices collectives on that
     topology; default is the legacy flat model.  Returns the Plan; its
@@ -191,6 +195,9 @@ def _train(args, device: torch.device) -> dict:
     sched = linear_warmup_cosine(args.lr, warmup=20, total_steps=args.steps)
     opt_init, opt_update = adamw(sched, weight_decay=0.01)
     ds = SyntheticLMDataset(cfg.vocab, args.seq, args.batch, seed=args.seed)
+    # the stub frontends' embeddings ride along in every step's batch
+    example = materialize_batch(cfg, args.batch, args.seq, seed=args.seed,
+                                device=device)
 
     plan = None
     if args.strategy_file:
@@ -243,8 +250,8 @@ def _train(args, device: torch.device) -> dict:
 
     losses, gnorms, times = [], [], []
     for step in range(start, args.steps):
-        batch = {"tokens": tokens_to_tensor(ds.global_step_batch(step), cfg,
-                                            device)}
+        batch = dict(example, tokens=tokens_to_tensor(
+            ds.global_step_batch(step), cfg, device))
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(params, opt, batch)
         losses.append(float(metrics["loss"]))

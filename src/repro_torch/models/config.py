@@ -6,7 +6,10 @@ names, defaults, ``block_kind``, ``is_moe_layer``, parameter counts and
 implements: dense attention (with an optional int8 KV cache), DeepSeek-V2's
 Multi-head Latent Attention (``block == "mla"``) and routed experts
 (``moe``), the RG-LRU hybrid of RecurrentGemma (``recurrent``) and RWKV-6
-(``block == "rwkv"``).  No encoder-decoder or VLM sub-configs yet.
+(``block == "rwkv"``), the encoder-decoder of SeamlessM4T (``encdec``: an
+encoder over stub frame embeddings, cross-attention in every decoder
+layer) and the VLM prefix of PaliGemma (``vlm_prefix_len`` stub patch
+embeddings before the text tokens).
 """
 from __future__ import annotations
 
@@ -35,6 +38,13 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    n_enc_layers: int = 12
+    enc_seq: int = 1024           # frame-embedding sequence length (stub)
+    frontend_dim: int = 1024      # dim of precomputed frame embeddings
+
+
+@dataclasses.dataclass(frozen=True)
 class RecurrentConfig:
     lru_width: int = 4096
     conv_width: int = 4
@@ -45,7 +55,7 @@ class RecurrentConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                # dense | moe | ssm | hybrid
+    arch_type: str                # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,7 +74,9 @@ class ModelConfig:
     block: str = "attn"           # attn | mla | rwkv (or hybrid via recurrent)
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    encdec: Optional[EncDecConfig] = None
     recurrent: Optional[RecurrentConfig] = None
+    vlm_prefix_len: int = 0       # image-token prefix length (stub embeddings)
     dtype: str = "bfloat16"
     kv_cache_dtype: str = ""      # "" = activations dtype; "int8" = quantized
     source: str = ""              # citation
@@ -122,6 +134,12 @@ class ModelConfig:
                 total += (3 if self.glu else 2) * d * self.d_ff
             else:
                 total += 2 * d * self.d_ff + d * d  # rwkv channel-mix
+        if self.encdec is not None:
+            for _ in range(self.encdec.n_enc_layers):
+                total += 4 * d * self.hd * self.n_heads
+                total += (3 if self.glu else 2) * d * self.d_ff
+            # decoder cross-attention
+            total += self.n_layers * 4 * d * self.hd * self.n_heads
         return float(total)
 
     def active_param_count(self) -> float:
@@ -137,8 +155,9 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant, as the reference's ``reduced()``: 2 layers
         (3 for a recurrent hybrid, one pattern cycle), d_model 256, f32,
-        LRU width 256, a small MLA and 4 experts with a capacity that drops
-        no token at toy scale."""
+        LRU width 256, a small MLA, 4 experts with a capacity that drops
+        no token at toy scale, a 2-layer encoder over 32 frames of 256 and
+        a prefix of 8 patches."""
         kw: dict = dict(
             n_layers=2 if self.recurrent is None else 3,
             d_model=256,
@@ -159,7 +178,12 @@ class ModelConfig:
             kw["moe"] = dataclasses.replace(
                 self.moe, n_routed=4, n_shared=1, top_k=2, d_expert=128,
                 capacity_factor=8.0)  # generous: no token drops at toy scale
+        if self.encdec is not None:
+            kw["encdec"] = EncDecConfig(n_enc_layers=2, enc_seq=32,
+                                        frontend_dim=256)
         if self.recurrent is not None:
             kw["recurrent"] = dataclasses.replace(self.recurrent,
                                                   lru_width=256)
+        if self.vlm_prefix_len:
+            kw["vlm_prefix_len"] = 8
         return dataclasses.replace(self, name=self.name + "-reduced", **kw)

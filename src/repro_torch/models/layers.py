@@ -10,8 +10,9 @@ Conventions, as in the reference:
 Ported: the train and prefill path over a full sequence (with flash
 attention through the CUDA kernel when asked for; MLA never takes it, as in
 the reference), and decode against a bf16/f32 KV cache, an int8 KV cache
-with bf16 scales, or MLA's compressed latent cache.  Not yet: the encoder's
-cross-attention.  Decode takes one position per batch row, so the serving
+with bf16 scales, or MLA's compressed latent cache; and the plain,
+non-causal attention of the encoder and of the decoder's cross-attention.
+Decode takes one position per batch row, so the serving
 engine advances every slot in one batched call where the reference vmaps a
 batch-1 step; each row computes what the reference's step computes
 (``moe_fwd(route_rows=True)`` routes each row as a batch of its own).
@@ -126,8 +127,9 @@ def _sdpa_dense(q, k, v, bias):
     return out.reshape(B, S, H, hd)
 
 
-def _causal_bias(S, T, causal, window, device):
-    qpos = torch.arange(S, device=device)[:, None]
+def _causal_bias(S, T, causal, window, device, q0: int = 0):
+    """Additive (S, T) mask of query rows q0..q0+S-1 over keys 0..T-1."""
+    qpos = q0 + torch.arange(S, device=device)[:, None]
     kpos = torch.arange(T, device=device)[None, :]
     ok = kpos <= qpos if causal else torch.ones((S, T), dtype=torch.bool,
                                                 device=device)
@@ -149,8 +151,8 @@ def sdpa(q, k, v, mask, use_flash: bool = False,
     GQA: query heads grouped over KV heads.  Routed as in the reference:
     ``use_flash`` with no mask takes the flash-attention kernel
     (:func:`repro_torch.kernels.ops.flash_attention`); otherwise long
-    self-attention takes the query-chunked online-softmax path so the score
-    matrix working set stays bounded, and the rest the dense path."""
+    self-attention takes the query-chunked path so the score matrix
+    working set stays bounded, and the rest the dense path."""
     S, T = q.shape[1], k.shape[1]
     if use_flash and mask is None:
         from ..kernels import ops as kops
@@ -159,66 +161,40 @@ def sdpa(q, k, v, mask, use_flash: bool = False,
         if S > _CHUNK_THRESHOLD and S == T:
             for blk in (_Q_BLOCK, 256, 128, 64):
                 if S % blk == 0:
-                    return _flash_xla(q, k, v, causal, window, qb=blk,
-                                      kb=blk)
+                    return _flash_xla(q, k, v, causal, window, qb=blk)
         bias = _causal_bias(S, T, causal, window, q.device)[None, None, None]
         return _sdpa_dense(q, k, v, bias)
     bias = mask[:, :, None] if mask.dim() == 4 else mask
     return _sdpa_dense(q, k, v, bias)
 
 
-def _flash_xla(q, k, v, causal, window, qb: int = _Q_BLOCK,
-               kb: int = _Q_BLOCK):
-    """Online-softmax attention in plain PyTorch, the port of the
-    reference's double ``lax.scan`` over query and KV blocks.  The working
-    set per step is (B,H,qb,kb); each query block is rematerialised in the
-    backward (the reference checkpoints its scan bodies).  Causality is
-    enforced by masking; blocks are not skipped."""
-    B, S, H, hd = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    nq, nk = S // qb, T // kb
-    qs = q.reshape(B, nq, qb, KV, G, hd).permute(1, 0, 3, 4, 2, 5)
-    ks = k.reshape(B, nk, kb, KV, hd).permute(1, 0, 3, 2, 4)
-    vs = v.reshape(B, nk, kb, KV, hd).permute(1, 0, 3, 2, 4)
-    scale = 1.0 / math.sqrt(hd)
-    dev = q.device
+def _flash_xla(q, k, v, causal, window, qb: int = _Q_BLOCK):
+    """Query-chunked attention in plain PyTorch, the port of the
+    reference's long-sequence path (its double ``lax.scan``).  Each block
+    of ``qb`` query rows attends over all T keys in one f32 softmax
+    (:func:`_sdpa_dense` on its rows) and is rematerialised in the
+    backward, so forward and backward hold one block's (B,H,qb,T) scores
+    at a time.  The reference also splits the keys into blocks under an
+    online softmax, holding (B,H,qb,kb); unrolled in Python that inner
+    loop costs (S/qb) x (T/kb) steps a layer in every step and trace, so
+    the port takes each block's softmax in one pass (equal to rounding).
+    Causality is enforced by masking; blocks are not skipped."""
+    S, T = q.shape[1], k.shape[1]
+    if S % qb:
+        raise ValueError(f"blocks of {qb} rows do not tile {S}")
 
-    def q_step(qi, qblk):
-        m = torch.full((B, KV, G, qb), _F32_MIN, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, KV, G, qb), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, KV, G, qb, hd), dtype=torch.float32,
-                          device=dev)
-        qpos = qi * qb + torch.arange(qb, device=dev)[:, None]
-        for ki in range(nk):
-            s = torch.einsum("bkgqh,bkth->bkgqt", qblk, ks[ki]).float()
-            s = s * scale
-            kpos = ki * kb + torch.arange(kb, device=dev)[None, :]
-            ok = kpos <= qpos if causal else torch.ones(
-                (qb, kb), dtype=torch.bool, device=dev)
-            if window is not None:
-                ok = ok & (kpos > qpos - window)
-            s = torch.where(ok[None, None, None], s,
-                            torch.full_like(s, _F32_MIN))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqt,bkth->bkgqh", p.to(vs.dtype), vs[ki])
-            m = m_new
-        out = acc / torch.clamp(l[..., None], min=1e-30)
-        return out.to(q.dtype)
+    def block(qblk, i):
+        bias = _causal_bias(qb, T, causal, window, q.device, q0=i * qb)
+        return _sdpa_dense(qblk, k, v, bias[None, None, None])
 
     outs = []
-    for qi in range(nq):
+    for i in range(S // qb):
+        qblk = q[:, i * qb:(i + 1) * qb]
         if torch.is_grad_enabled():
-            outs.append(checkpoint(q_step, qi, qs[qi], use_reentrant=False))
+            outs.append(checkpoint(block, qblk, i, use_reentrant=False))
         else:
-            outs.append(q_step(qi, qs[qi]))
-    # (nq, B, KV, G, qb, hd) -> (B, S, H, hd)
-    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, hd)
+            outs.append(block(qblk, i))
+    return torch.cat(outs, 1)
 
 
 def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
@@ -308,7 +284,8 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     return (out, new_cache) if (return_cache or cache is not None) else out
 
 
-def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window):
+def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window, *,
+                  memory=None, plain: bool = False, scope=("attn",)):
     """Tensor-parallel attention over the ``model`` group of ``tp``, by the
     reference's sharding rules (``distributed/sharding.py``).
 
@@ -320,56 +297,92 @@ def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window):
     Unaligned heads: ``wq`` is sharded on its input dim (a partial q,
     reduced), k and v are replicated, every rank attends with all heads,
     and ``wo``, sharded on its output dim, gives output columns that
-    ``gather`` joins.  Biases are replicated: a rank adds its heads' slice."""
+    ``gather`` joins.  Biases are replicated: a rank adds its heads' slice.
+
+    ``plain`` is the attention of the encoder and of the decoder's
+    cross-attention (:func:`cross_attention_fwd`): no rope, no bias, no
+    mask.  k and v come from ``memory`` (replicated, through ``copy``)
+    where it is given, else from ``x``.  ``scope`` names the block's
+    subtree in the layer (``attn``, ``xattn``, or ``encoder`` and ``attn``
+    for an encoder layer), where ``tp`` finds its specs."""
     B, S, D = x.shape
     hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
+    kv_in = x if memory is None else memory
+    T = kv_in.shape[1]
 
     def proj(inp, name, bias_slice):
         out = inp @ p[name].to(dt)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not plain:
             b = p["b" + name[1]]
             out = out + (tp.local(tp.copy(b), -1) if bias_slice else b).to(dt)
         return out
 
-    if tp.dim("attn", "wq") == 0:
+    def rope(t):
+        return t if plain else apply_rope(t, positions, cfg)
+
+    if tp.dim(*scope, "wq") == 0:
         # unaligned: q from this rank's slice of the input dim, summed
         xq = tp.local(tp.copy(x), -1)
         q = tp.reduce(xq @ p["wq"].to(dt))
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not plain:
             q = q + p["bq"].to(dt)
-        k, v = proj(x, "wk", False), proj(x, "wv", False)
-        q = apply_rope(q.reshape(B, S, H, hd), positions, cfg)
-        k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg)
-        out = sdpa(q, k, v.reshape(B, S, KV, hd), None, window=window)
+        k, v = proj(kv_in, "wk", False), proj(kv_in, "wv", False)
+        q = rope(q.reshape(B, S, H, hd))
+        k = rope(k.reshape(B, T, KV, hd))
+        out = sdpa(q, k, v.reshape(B, T, KV, hd), None, window=window,
+                   causal=not plain)
         out = tp.copy(out.reshape(B, S, H * hd)) @ p["wo"].to(dt)
         return tp.gather(out, -1)
 
     Hl = H // tp.size
     xs = tp.copy(x)
-    q = apply_rope(proj(xs, "wq", True).reshape(B, S, Hl, hd), positions,
-                   cfg)
-    if tp.dim("attn", "wk") is not None:
+    kvs = xs if memory is None else tp.copy(memory)
+    q = rope(proj(xs, "wq", True).reshape(B, S, Hl, hd))
+    if tp.dim(*scope, "wk") is not None:
         KVl = KV // tp.size
-        k, v = proj(xs, "wk", True), proj(xs, "wv", True)
+        k, v = proj(kvs, "wk", True), proj(kvs, "wv", True)
     else:
         # replicated k and v: this rank's heads read the KV heads they map
         # to, and only those get a gradient here
-        k, v = tp.copy(proj(x, "wk", False)), tp.copy(proj(x, "wv", False))
+        k = tp.copy(proj(kv_in, "wk", False))
+        v = tp.copy(proj(kv_in, "wv", False))
         G = H // KV
         first = tp.rank * Hl
         if Hl % G == 0:
             KVl = Hl // G
-            k = k.reshape(B, S, KV, hd)[:, :, first // G:first // G + KVl]
-            v = v.reshape(B, S, KV, hd)[:, :, first // G:first // G + KVl]
+            k = k.reshape(B, T, KV, hd)[:, :, first // G:first // G + KVl]
+            v = v.reshape(B, T, KV, hd)[:, :, first // G:first // G + KVl]
         else:
             idx = torch.arange(first, first + Hl, device=x.device) // G
             KVl = Hl
-            k = k.reshape(B, S, KV, hd)[:, :, idx]
-            v = v.reshape(B, S, KV, hd)[:, :, idx]
-    k = apply_rope(k.reshape(B, S, KVl, hd), positions, cfg)
-    out = sdpa(q, k, v.reshape(B, S, KVl, hd), None, window=window)
+            k = k.reshape(B, T, KV, hd)[:, :, idx]
+            v = v.reshape(B, T, KV, hd)[:, :, idx]
+    k = rope(k.reshape(B, T, KVl, hd))
+    out = sdpa(q, k, v.reshape(B, T, KVl, hd), None, window=window,
+               causal=not plain)
     return tp.reduce(out.reshape(B, S, Hl * hd) @ p["wo"].to(dt))
+
+
+def cross_attention_fwd(p: dict, cfg: ModelConfig, x, memory, tp=None,
+                        scope=("xattn",)):
+    """Attention of ``x``'s queries over ``memory``'s keys and values with
+    no rope, bias or mask, through the plain :func:`sdpa` (never the flash
+    kernel), as the reference computes the decoder's cross-attention over
+    the encoder's output (B, T, D) and, with ``memory`` the normed input
+    itself, the encoder's self-attention.  With a tensor-parallel context ``tp`` whose
+    rules shard the block (its specs found under ``scope``), this rank's
+    heads (:func:`_attention_tp`)."""
+    if tp is not None and tp.dim(*scope, "wq") is not None:
+        return _attention_tp(p, cfg, x, None, tp, None, memory=memory,
+                             plain=True, scope=scope)
+    B, S, D = x.shape
+    T, hd = memory.shape[1], cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, hd)
+    k = (memory @ p["wk"].to(x.dtype)).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (memory @ p["wv"].to(x.dtype)).reshape(B, T, cfg.n_kv_heads, hd)
+    out = sdpa(q, k, v, None, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
 def _row_positions(pos, B: int, device) -> torch.Tensor:
@@ -519,11 +532,12 @@ def _act(cfg: ModelConfig, x):
     return F.relu(x)
 
 
-def mlp_fwd(p: dict, cfg: ModelConfig, x, tp=None):
+def mlp_fwd(p: dict, cfg: ModelConfig, x, tp=None, scope=("mlp",)):
     """The FFN.  With a tensor-parallel context ``tp`` whose rules shard
-    it, ``w_up``/``w_gate`` are column-sharded and ``w_down`` row-sharded:
-    this rank's FFN columns give partial sums that ``tp.reduce`` adds."""
-    sharded = tp is not None and tp.dim("mlp", "w_up") is not None
+    it (its specs under ``scope``), ``w_up``/``w_gate`` are
+    column-sharded and ``w_down`` row-sharded: this rank's FFN columns
+    give partial sums that ``tp.reduce`` adds."""
+    sharded = tp is not None and tp.dim(*scope, "w_up") is not None
     if sharded:
         x = tp.copy(x)
     up = x @ p["w_up"].to(x.dtype)

@@ -1,25 +1,36 @@
-"""The per-layer decoder, and the pieces the stacked model shares with it
+"""The per-layer model, and the pieces the stacked model shares with it
 (port of ``repro/models/model.py``), for dense attention blocks (with a
 bf16/f32 or int8 KV cache), MLA blocks with routed experts (DeepSeek-V2),
-the RG-LRU blocks of the recurrent hybrid and RWKV-6 blocks.
+the RG-LRU blocks of the recurrent hybrid, RWKV-6 blocks, the
+encoder-decoder (SeamlessM4T: an encoder over stub frame embeddings and
+cross-attention in every decoder layer) and the VLM prefix decoder
+(PaliGemma: stub patch embeddings through ``vision_proj`` before the text
+tokens, whose logits are sliced off).
 
 Entry points, as in the reference:
-    init_params(cfg, seed=, device=)           {"embed", "layers": [...],
-                                               "final_norm", "lm_head"?}
-    forward(params, cfg, tokens)               (logits, aux)
+    init_params(cfg, seed=, device=)           {"embed", "encoder"?,
+                                               "final_norm", "layers": [...],
+                                               "lm_head"?, "vision_proj"?}
+    forward(params, cfg, tokens, prefix_emb=, enc_frames=) (logits, aux)
     loss_fn(params, cfg, batch)                mean next-token CE + MoE aux
+    encode(params, cfg, frames)                the encoder's output (memory)
     init_cache(cfg, batch, cache_len)          per-layer decode state
-    prefill(params, cfg, tokens, cache_len)    (last logits, caches)
-    decode_step(params, cfg, caches, token, pos) (logits, caches)
+    prefill(params, cfg, tokens, cache_len, prefix_emb=, enc_frames=)
+                                               (last logits, caches)
+    decode_step(params, cfg, caches, token, pos, memory=) (logits, caches)
 
 The per-layer tree's leaves come in the reference's ``jax.tree.leaves``
-order (``embed``, ``final_norm``, then each layer's, then ``lm_head``), so
-a Plan's bucket indices name the same tensors in both packages.  The
-per-layer model has no loop for the tracer to collapse: its trace shows
-every layer's ops.  The encoder-decoder and the VLM prefix are not ported
-(ROADMAP A6).
+order (sorted keys: ``embed``, ``encoder``, ``final_norm``, each layer's,
+``lm_head``, ``vision_proj``), so a Plan's bucket indices name the same
+tensors in both packages.  The per-layer model has no loop for the tracer
+to collapse: its trace shows every layer's ops.  As in the reference,
+``prefill`` does not return the encoder's output and no cache holds cross
+k and v: a decode step attends over the ``memory`` its caller passes.
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import numpy as np
 import torch
@@ -41,8 +52,7 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int, lead,
     ``moe`` in an MoE layer, whose expert stacks are passed through
     ``cast`` as each is drawn."""
     def norm():
-        return {k: v.expand(*lead, -1).clone()
-                for k, v in L.init_norm(cfg, cfg.d_model, "cpu").items()}
+        return _norm(cfg, lead)
 
     p = {"ln1": norm()}
     if cfg.block_kind(li) == "rwkv":
@@ -60,7 +70,36 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, li: int, lead,
         p["moe"] = L.init_moe(gen, cfg, lead, cast=cast)
     else:
         p["mlp"] = L.init_mlp(gen, cfg, lead)
+    if cfg.encdec is not None:
+        p["ln_x"] = norm()
+        p["xattn"] = L.init_attention(gen, cfg, lead)
     return p
+
+
+def _norm(cfg: ModelConfig, lead) -> dict:
+    """A norm's f32 parameters with ``lead`` stacked dims, on the default
+    device."""
+    return {k: v.expand(*lead, -1).clone()
+            for k, v in L.init_norm(cfg, cfg.d_model, "cpu").items()}
+
+
+def init_enc_layer(gen: torch.Generator, cfg: ModelConfig, lead) -> dict:
+    """An encoder layer's f32 parameters: pre-norm self-attention and
+    MLP."""
+    return {"ln1": _norm(cfg, lead), "attn": L.init_attention(gen, cfg, lead),
+            "ln2": _norm(cfg, lead), "mlp": L.init_mlp(gen, cfg, lead)}
+
+
+def init_encoder(gen: torch.Generator, cfg: ModelConfig, cast,
+                 device) -> dict:
+    """The encoder's parameters, stacked over its layers: the frames' input
+    projection and the layers in ``cfg.dtype`` (through ``cast``), the
+    final norm in f32, as in the reference."""
+    e = cfg.encdec
+    return {"in_proj": cast(L._randn(gen, (e.frontend_dim, cfg.d_model))
+                            / math.sqrt(e.frontend_dim)),
+            "layers": cast(init_enc_layer(gen, cfg, (e.n_enc_layers,))),
+            "final_norm": L.init_norm(cfg, cfg.d_model, device)}
 
 
 def _sinusoid(S: int, D: int, dtype, device) -> torch.Tensor:
@@ -112,10 +151,17 @@ def _sinusoid_positions(cfg: ModelConfig) -> bool:
             and cfg.recurrent is None)
 
 
-def _embed_positions(params, cfg: ModelConfig, tokens, tp=None):
-    """Embedded tokens (B, S, D), with the sinusoid added where
-    :func:`_sinusoid_positions` says, and the positions (S,)."""
+def _embed_positions(params, cfg: ModelConfig, tokens, tp=None,
+                     prefix_emb=None):
+    """Embedded tokens (B, P + S, D), after the VLM prefix's patch
+    embeddings projected by ``vision_proj`` when the config has a prefix
+    and ``prefix_emb`` (B, P, D) is given (the prefix takes positions
+    0..P-1; P = 0 otherwise), with the sinusoid added where
+    :func:`_sinusoid_positions` says; and the positions (P + S,)."""
     x = _embed(params, cfg, tokens, tp)
+    if cfg.vlm_prefix_len and prefix_emb is not None:
+        pre = prefix_emb.to(x.dtype) @ params["vision_proj"]
+        x = torch.cat([pre, x], dim=1)
     S = x.shape[1]
     if _sinusoid_positions(cfg):
         x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)[None]
@@ -143,17 +189,20 @@ def _decode_embed(params, cfg: ModelConfig, token, pos):
 def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
                return_cache: bool = False, cache_len: int = 0,
                use_kernels: bool = False, li: int = 0,
-               with_aux: bool = False, route_rows: bool = False, tp=None):
-    """Block ``li`` (pre-norm attention, MLA or RG-LRU block, then pre-norm
-    MLP or routed experts; or pre-norm RWKV time mix, then pre-norm channel
-    mix).  Returns x, or (x, new_cache) when a cache is given or asked for,
-    as ``attention_fwd`` does; with ``with_aux``, (x, aux, new_cache) as
-    the reference's ``_layer_fwd`` (aux the experts' load-balance loss, 0
-    elsewhere).  ``use_kernels`` runs attention through the flash-attention
-    kernel (never MLA, as in the reference) and the RG-LRU and WKV-6
-    recurrences through their kernels; ``route_rows`` routes each batch
-    row's tokens through the experts as a batch of their own.  ``tp``, a
-    tensor-parallel context, runs a dense block on this rank's slices."""
+               with_aux: bool = False, route_rows: bool = False, tp=None,
+               memory=None):
+    """Block ``li`` (pre-norm attention, MLA or RG-LRU block, then, given
+    the encoder's output ``memory``, pre-norm cross-attention over it, then
+    pre-norm MLP or routed experts; or pre-norm RWKV time mix, then
+    pre-norm channel mix).  Returns x, or (x, new_cache) when a cache is
+    given or asked for, as ``attention_fwd`` does; with ``with_aux``, (x,
+    aux, new_cache) as the reference's ``_layer_fwd`` (aux the experts'
+    load-balance loss, 0 elsewhere).  ``use_kernels`` runs attention
+    through the flash-attention kernel (never MLA, nor cross-attention, as
+    in the reference) and the RG-LRU and WKV-6 recurrences through their
+    kernels; ``route_rows`` routes each batch row's tokens through the
+    experts as a batch of their own.  ``tp``, a tensor-parallel context,
+    runs a dense block on this rank's slices."""
     want_cache = return_cache or cache is not None
 
     def done(x, new_cache, aux=None):
@@ -188,6 +237,9 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
                             tp=tp)
     mix_out, new_cache = r if want_cache else (r, None)
     x = x + mix_out
+    if memory is not None:
+        hx = L.norm_fwd(p["ln_x"], cfg, x)
+        x = x + L.cross_attention_fwd(p["xattn"], cfg, hx, memory, tp)
     h2 = L.norm_fwd(p["ln2"], cfg, x)
     aux = None
     if cfg.is_moe_layer(li):
@@ -255,53 +307,93 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 
+# ------------------------------------------------------------------ encoder
+def _enc_layer_fwd(lp, cfg: ModelConfig, x, tp=None):
+    """One encoder layer: pre-norm non-causal self-attention, then pre-norm
+    MLP.  Under ``tp`` its specs are found under ``encoder``."""
+    h = L.norm_fwd(lp["ln1"], cfg, x)
+    x = x + L.cross_attention_fwd(lp["attn"], cfg, h, h, tp,
+                                  scope=("encoder", "attn"))
+    h2 = L.norm_fwd(lp["ln2"], cfg, x)
+    return x + L.mlp_fwd(lp["mlp"], cfg, h2, tp, scope=("encoder", "mlp"))
+
+
+def _encode(enc: dict, cfg: ModelConfig, frames, tp=None, layers=list,
+            region=contextlib.nullcontext):
+    """The encoder over (B, T, F) frame embeddings: the input projection in
+    ``cfg.dtype``, the sinusoid, the layers inside ``region`` (each
+    layer's parameters, in order, from ``layers(enc["layers"])``, also
+    called inside it), the final norm."""
+    x = frames.to(getattr(torch, cfg.dtype)) @ enc["in_proj"]
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    with region():
+        for lp in layers(enc["layers"]):
+            x = _enc_layer_fwd(lp, cfg, x, tp)
+    return L.norm_fwd(enc["final_norm"], cfg, x)
+
+
+def encode(params, cfg: ModelConfig, frames, tp=None):
+    """The encoder's output (B, T, D) over precomputed frontend frame
+    embeddings (B, T, F): the ``memory`` of cross-attention."""
+    return _encode(params["encoder"], cfg, frames, tp)
+
+
 # ---------------------------------------------------------- per-layer model
-_NOT_PORTED = "is not ported yet (ROADMAP A6)"
-
-
-def _check_supported(cfg: ModelConfig, batch=None) -> None:
-    """Raise for an input that waits on ROADMAP A6: the VLM prefix and the
-    encoder's frames (the port's config has no encoder or VLM fields
-    yet)."""
-    for key in ("prefix_emb", "enc_frames"):
-        if batch is not None and batch.get(key) is not None:
-            raise NotImplementedError(f"batch[{key!r}] {_NOT_PORTED}")
-
-
 def from_stacked(params, cfg: ModelConfig) -> dict:
     """The per-layer tree over a stacked model's parameters; each layer's
-    leaves are views of the stacked leaves (no copy)."""
+    leaves, the encoder's too, are views of the stacked leaves (no
+    copy)."""
     from . import stacked as ST
 
     out = {k: v for k, v in params.items() if k != "groups"}
     out["layers"] = ST._layers(params, cfg)
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"],
+                              layers=ST._enc_layers(params, cfg))
     return out
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random per-layer parameters: the weights that the stacked model's
     ``init_params`` draws for the same seed, each layer's copied out of the
-    stack.  Dtypes as in the reference: ``final_norm`` f32, the rest
-    ``cfg.dtype``."""
+    stack.  Dtypes as in the reference: ``final_norm`` (and the encoder's)
+    f32, the rest ``cfg.dtype``."""
     from . import stacked as ST
 
-    _check_supported(cfg)
     out = from_stacked(ST.init_params(cfg, seed=seed, device=device), cfg)
     out["layers"] = [T.map(torch.clone, p) for p in out["layers"]]
+    if "encoder" in out:
+        out["encoder"]["layers"] = [T.map(torch.clone, p)
+                                    for p in out["encoder"]["layers"]]
     return out
 
 
-def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
-            remat: bool = False):
-    """Full-sequence logits (B, S, vocab) and the summed auxiliary loss of
-    the MoE layers (0 without MoE).  ``remat`` recomputes each layer in the
+def _inputs(params, cfg: ModelConfig, tokens, prefix_emb, enc_frames):
+    """The decoder's input (B, P + S, D), its positions, the prefix length
+    P (0 without a prefix) and the encoder's output (None without
+    frames)."""
+    x, positions = _embed_positions(params, cfg, tokens,
+                                    prefix_emb=prefix_emb)
+    memory = (encode(params, cfg, enc_frames) if enc_frames is not None
+              else None)
+    return x, positions, x.shape[1] - tokens.shape[1], memory
+
+
+def forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
+            enc_frames=None, use_kernels: bool = False, remat: bool = False):
+    """Full-sequence logits (B, S, vocab) of the text tokens and the summed
+    auxiliary loss of the MoE layers (0 without MoE).  ``prefix_emb``:
+    (B, P, D) VLM patch embeddings (stub frontend), whose positions' logits
+    are sliced off; ``enc_frames``: (B, T, F) audio frame embeddings, the
+    encoder's input.  ``remat`` recomputes each decoder layer in the
     backward (``torch.utils.checkpoint``), as the reference's
     ``jax.checkpoint``."""
-    _check_supported(cfg)
-    x, positions = _embed_positions(params, cfg, tokens)
+    x, positions, offset, memory = _inputs(params, cfg, tokens, prefix_emb,
+                                           enc_frames)
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, p in enumerate(params["layers"]):
-        kw = dict(use_kernels=use_kernels, li=li, with_aux=True)
+        kw = dict(use_kernels=use_kernels, li=li, with_aux=True,
+                  memory=memory)
         if remat and torch.is_grad_enabled():
             x, aux, _ = checkpoint(_layer_fwd, p, cfg, x, positions,
                                    use_reentrant=False, **kw)
@@ -309,18 +401,21 @@ def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
             x, aux, _ = _layer_fwd(p, cfg, x, positions, **kw)
         total_aux = total_aux + aux
     x = L.norm_fwd(params["final_norm"], cfg, x)
-    return _unembed(params, cfg, x), total_aux
+    logits = _unembed(params, cfg, x)
+    return (logits[:, offset:] if offset else logits), total_aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, use_kernels: bool = False,
             remat: bool = False):
-    """Mean next-token cross-entropy over the full f32 logits, plus the MoE
-    aux loss (the reference's ``model.loss_fn``; the stacked model chunks
-    it)."""
-    _check_supported(cfg, batch)
+    """Mean next-token cross-entropy over the text tokens' full f32 logits,
+    plus the MoE aux loss (the reference's ``model.loss_fn``; the stacked
+    model chunks it).  ``batch`` may carry ``prefix_emb`` and
+    ``enc_frames``."""
     tokens = batch["tokens"]
-    logits, aux = forward(params, cfg, tokens, use_kernels=use_kernels,
-                          remat=remat)
+    logits, aux = forward(params, cfg, tokens,
+                          prefix_emb=batch.get("prefix_emb"),
+                          enc_frames=batch.get("enc_frames"),
+                          use_kernels=use_kernels, remat=remat)
     logits = logits[:, :-1].float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tokens[:, 1:, None])[..., 0]
@@ -328,36 +423,40 @@ def loss_fn(params, cfg: ModelConfig, batch, *, use_kernels: bool = False,
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
-            use_kernels: bool = False):
-    """Run a (B, S) prompt; returns the last position's logits (B, vocab)
-    and one fresh cache per layer (``init_cache``'s layout, k/v of length
-    ``cache_len``)."""
-    _check_supported(cfg)
-    x, positions = _embed_positions(params, cfg, tokens)
+            prefix_emb=None, enc_frames=None, use_kernels: bool = False):
+    """Run a (B, S) prompt, after its (B, P, D) ``prefix_emb`` where the
+    config has a prefix, and with cross-attention over the encoder's output
+    of ``enc_frames`` where given; returns the last position's logits (B,
+    vocab) and one fresh cache per layer (``init_cache``'s layout, k/v of
+    length ``cache_len``, the prefix's at positions 0..P-1)."""
+    x, positions, _, memory = _inputs(params, cfg, tokens, prefix_emb,
+                                      enc_frames)
     caches = []
     for li, p in enumerate(params["layers"]):
         x, c = _layer_fwd(p, cfg, x, positions, return_cache=True,
-                          cache_len=cache_len, use_kernels=use_kernels, li=li)
+                          cache_len=cache_len, use_kernels=use_kernels, li=li,
+                          memory=memory)
         caches.append(c)
     x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
     return _unembed(params, cfg, x)[:, 0], caches
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
-                route_rows: bool = False):
+                memory=None, route_rows: bool = False):
     """One serving step over per-layer ``caches``.  ``token`` (B,) int;
     ``pos`` the position each row writes, a scalar or (B,).  Writes the
     caches in place (the reference returns updated copies) and returns
-    (logits (B, vocab), caches).  The experts route the B rows together,
-    as the reference's ``decode_step`` at batch B, unless ``route_rows``
-    routes each row as a batch of one, as the reference engine's vmapped
-    batch-1 step does (the capacity then drops no token)."""
-    _check_supported(cfg)
+    (logits (B, vocab), caches).  ``memory``, the encoder's output (B, T,
+    D), adds cross-attention over it, as in the reference, which caches no
+    cross k and v.  The experts route the B rows together, as the
+    reference's ``decode_step`` at batch B, unless ``route_rows`` routes
+    each row as a batch of one, as the reference engine's vmapped batch-1
+    step does (the capacity then drops no token)."""
     x, positions, pos = _decode_embed(params, cfg, token, pos)
     out = []
     for li, (p, c) in enumerate(zip(params["layers"], caches)):
         x, c = _layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li,
-                          route_rows=route_rows)
+                          route_rows=route_rows, memory=memory)
         out.append(c)
     x = L.norm_fwd(params["final_norm"], cfg, x)
     return _unembed(params, cfg, x)[:, 0], out

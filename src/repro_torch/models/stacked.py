@@ -16,9 +16,16 @@ is one ``plain`` group too, its blocks holding ``ln1``, ``ln2`` and
 ``tmix`` (time mix and channel mix).  A recurrent hybrid is a ``cycle`` group of whole
 pattern cycles plus a ``tail`` group of the layers left over, each holding
 one subtree ``b{j}`` per position of the cycle (recurrentgemma-9b: 12 x
-(rec, rec, attn) and a tail of (rec, rec), 63 leaves).
+(rec, rec, attn) and a tail of (rec, rec), 63 leaves).  An
+encoder-decoder (seamless-m4t-medium) adds ``encoder``: ``in_proj``, the
+encoder's layers stacked into one subtree (``ln1``, ``attn``, ``ln2``,
+``mlp``) and its ``final_norm``; its decoder layers also hold ``ln_x`` and
+the cross-attention ``xattn``.  A VLM prefix decoder (paligemma-3b) adds
+``vision_proj``, the stub projector (an identity), whose output precedes
+the text tokens; the loss covers the text tokens only.
 
-Where the reference scans a layer group, the port loops over the layers;
+Where the reference scans a layer group (or the encoder's layers), the
+port loops over the layers;
 ``remat`` rematerialises each layer (and each cross-entropy chunk) in the
 backward through ``torch.utils.checkpoint``, as ``jax.checkpoint`` does in
 the reference.
@@ -80,8 +87,9 @@ def layer_groups(cfg: ModelConfig) -> list[dict]:
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 draw_on_device: bool = False) -> dict:
     """Random parameters in the reference's shapes and dtypes: layer
-    weights and norms in ``cfg.dtype``, the final norm in f32 (the
-    reference leaves it uncast).  Each leaf is drawn in f32 from a
+    weights and norms in ``cfg.dtype``, the final norms in f32 (the
+    reference leaves them uncast), the stub ``vision_proj`` an identity in
+    ``cfg.dtype``.  Each leaf is drawn in f32 from a
     ``torch.Generator(seed)``, cast, and moved to ``device``.  The generator
     is on the CPU, so a seed gives the same weights on every device;
     ``draw_on_device`` draws on ``device`` instead (other numbers, no host
@@ -114,6 +122,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         params["lm_head"] = cast(L._randn(gen, (cfg.d_model, cfg.vocab))
                                  * 0.02)
+    if cfg.encdec is not None:
+        params["encoder"] = M.init_encoder(gen, cfg, cast, dev)
+    if cfg.vlm_prefix_len:
+        params["vision_proj"] = torch.eye(cfg.d_model, dtype=dt, device=dev)
     return params
 
 
@@ -144,22 +156,44 @@ def _layers(params, cfg: ModelConfig):
     return _per_layer(params["groups"], cfg)
 
 
+def _enc_layers(params, cfg: ModelConfig):
+    """Each encoder layer's parameters, in layer order."""
+    return _group_layers(params["encoder"]["layers"],
+                         {"kind": "plain", "count": cfg.encdec.n_enc_layers})
+
+
 _embed_positions = M._embed_positions
 
 
-def hidden_forward(params, cfg: ModelConfig, tokens, *,
-                   use_kernels: bool = False, remat: bool = False, tp=None):
+def encode(params, cfg: ModelConfig, frames, tp=None):
+    """The encoder's output (B, T, D) over (B, T, F) frame embeddings; its
+    layer loop is one ``lax.scan`` in the reference, marked for the
+    tracer."""
+    return M._encode(params["encoder"], cfg, frames, tp,
+                     layers=lambda _: _enc_layers(params, cfg),
+                     region=scan_region)
+
+
+def hidden_forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
+                   enc_frames=None, use_kernels: bool = False,
+                   remat: bool = False, tp=None):
     """Everything before the unembed: (B, S) tokens -> (B, S, D) normed
-    hidden states, and the layers' summed MoE aux loss (0 without MoE).
-    With a tensor-parallel context ``tp``, ``params`` holds this rank's
-    slices (:mod:`repro_torch.distributed.tensor_parallel`) and the
-    hidden states come out whole on every rank of its group."""
-    x, positions = _embed_positions(params, cfg, tokens, tp)
+    hidden states of the text tokens, and the layers' summed MoE aux loss
+    (0 without MoE).  ``prefix_emb`` (B, P, D) runs before the tokens and
+    is sliced off after the final norm; ``enc_frames`` (B, T, F) gives the
+    encoder's output, which every decoder layer cross-attends.  With a
+    tensor-parallel context ``tp``, ``params`` holds this rank's slices
+    (:mod:`repro_torch.distributed.tensor_parallel`) and the hidden states
+    come out whole on every rank of its group."""
+    x, positions = _embed_positions(params, cfg, tokens, tp, prefix_emb)
+    offset = x.shape[1] - tokens.shape[1]
+    memory = (encode(params, cfg, enc_frames, tp) if enc_frames is not None
+              else None)
 
     def block(p, x, li):
         x, aux, _ = M._layer_fwd(p, cfg, x, positions,
                                  use_kernels=use_kernels, li=li,
-                                 with_aux=True, tp=tp)
+                                 with_aux=True, tp=tp, memory=memory)
         return x, aux
 
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -174,14 +208,17 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *,
                     x, aux = block(p, x, li)
                 total_aux = total_aux + aux
                 li += 1
-    return L.norm_fwd(params["final_norm"], cfg, x), total_aux
+    x = L.norm_fwd(params["final_norm"], cfg, x)
+    return (x[:, offset:] if offset else x), total_aux
 
 
-def forward(params, cfg: ModelConfig, tokens, *, use_kernels: bool = False,
-            remat: bool = False, tp=None):
-    """Full-sequence logits (B, S, vocab); under a tensor-parallel context
-    ``tp``, whole on every rank of its group."""
-    x, _ = hidden_forward(params, cfg, tokens, use_kernels=use_kernels,
+def forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
+            enc_frames=None, use_kernels: bool = False, remat: bool = False,
+            tp=None):
+    """Full-sequence logits (B, S, vocab) of the text tokens; under a
+    tensor-parallel context ``tp``, whole on every rank of its group."""
+    x, _ = hidden_forward(params, cfg, tokens, prefix_emb=prefix_emb,
+                          enc_frames=enc_frames, use_kernels=use_kernels,
                           remat=remat, tp=tp)
     return M._unembed(params, cfg, x, tp)
 
@@ -212,9 +249,14 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
     aux loss, added after the chunks as in the reference.  With a
     tensor-parallel context ``tp`` whose rules shard the vocab, the chunks
     run vocab-parallel over its group, as the reference's do whenever its
-    mesh has a ``model`` dim, even of size 1."""
+    mesh has a ``model`` dim, even of size 1.  ``batch`` may carry the
+    stub frontends' ``prefix_emb`` and ``enc_frames``; the loss covers the
+    text tokens only."""
     tokens = batch["tokens"]
-    x, aux = hidden_forward(params, cfg, tokens, remat=remat, tp=tp)
+    x, aux = hidden_forward(params, cfg, tokens,
+                            prefix_emb=batch.get("prefix_emb"),
+                            enc_frames=batch.get("enc_frames"), remat=remat,
+                            tp=tp)
     B, S, D = x.shape
     dev = x.device
     targets = torch.cat(
@@ -275,25 +317,31 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
-                route_rows: bool = False):
+                memory=None, route_rows: bool = False):
     """One serving step.  ``token`` (B,) int; ``pos`` the position each row
     writes: a scalar, as in the reference, or (B,) for one per row.
     Writes the new k/v, latents and recurrent states into ``caches`` in
-    place.  Returns (logits (B, vocab), caches).  The experts route the B
-    rows together, as the reference's ``decode_step`` does (its capacity
-    from T = B may drop tokens); ``route_rows`` routes each row as a batch
-    of one, as the reference engine's vmap over batch-1 steps does."""
+    place.  Returns (logits (B, vocab), caches).  ``memory``, the
+    encoder's output (:func:`encode`), adds cross-attention over it.  The
+    experts route the B rows together, as the reference's ``decode_step``
+    does (its capacity from T = B may drop tokens); ``route_rows`` routes
+    each row as a batch of one, as the reference engine's vmap over
+    batch-1 steps does."""
     logits, _ = M.decode_step(M.from_stacked(params, cfg), cfg,
                               _per_layer(caches, cfg), token, pos,
-                              route_rows=route_rows)
+                              memory=memory, route_rows=route_rows)
     return logits, caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
-            use_kernels: bool = False):
-    """Run a (B, S) prompt; returns the last position's logits (B, vocab)
-    and fresh caches: the prompt's k/v in caches of length ``cache_len``,
-    and each recurrent block's last state."""
+            prefix_emb=None, enc_frames=None, use_kernels: bool = False):
+    """Run a (B, S) prompt (after its ``prefix_emb`` where the config has
+    a prefix; cross-attending the encoder's output of ``enc_frames`` where
+    given); returns the last position's logits (B, vocab) and fresh
+    caches: the prompt's k/v in caches of length ``cache_len``, and each
+    recurrent block's last state."""
     logits, per_layer = M.prefill(M.from_stacked(params, cfg), cfg, tokens,
-                                  cache_len, use_kernels=use_kernels)
+                                  cache_len, prefix_emb=prefix_emb,
+                                  enc_frames=enc_frames,
+                                  use_kernels=use_kernels)
     return logits, _stack_caches(cfg, per_layer)

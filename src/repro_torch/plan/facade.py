@@ -35,8 +35,10 @@ def trace_model_graph(cfg, *, batch: int = 8, seq: int = 64,
                       n_layers: int | None = None, hw: Hardware = H100_SXM):
     """Trace + profile one training step of a model config (the Search
     Phase's input): the model's loss and gradients, without remat, on meta
-    parameters and a meta ``(batch, seq)`` int64 token batch, so it spends
-    no memory and no device time at any width.  ``model="stacked"`` is the
+    parameters and ``materialize_batch``'s batch as meta tensors (the
+    ``(batch, seq)`` int64 tokens and the stub frontends' f32 embeddings
+    where the arch has them), so it spends no memory and no device time at
+    any width.  ``model="stacked"`` is the
     stacked-layer model, whose layer loops and chunked cross-entropy the
     tracer collapses into one prim each; ``model="layers"`` the per-layer
     model, whose trace shows every layer's forward and backward.
@@ -50,6 +52,7 @@ def trace_model_graph(cfg, *, batch: int = 8, seq: int = 64,
     from ..configs import get_config
     from ..core.costs import profile_graph
     from ..core.trace import trace_grad_graph
+    from ..data.pipeline import materialize_batch
 
     if isinstance(cfg, str):
         cfg = get_config(cfg)
@@ -67,9 +70,8 @@ def trace_model_graph(cfg, *, batch: int = 8, seq: int = 64,
                          f"(expected 'stacked' or 'layers')")
     with torch.device("meta"):
         params = MM.init_params(cfg, device="meta")
-    tokens = torch.zeros((batch, seq), dtype=torch.int64, device="meta")
-    g = trace_grad_graph(lambda p, bt: MM.loss_fn(p, cfg, bt), params,
-                         {"tokens": tokens})
+    data = materialize_batch(cfg, batch, seq, device="meta")
+    g = trace_grad_graph(lambda p, bt: MM.loss_fn(p, cfg, bt), params, data)
     return profile_graph(g, hw)
 
 

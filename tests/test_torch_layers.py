@@ -212,18 +212,29 @@ def test_stacked_matches_per_layer(arch):
 
 
 def test_blocks_of_a6_raise():
-    """What still waits on ROADMAP A6 raises: a batch with the VLM prefix
-    or the encoder's frames.  An MLA block with routed experts is ported
-    and builds."""
+    """The blocks of ROADMAP A6 are ported and raise nothing: an MLA
+    block with routed experts builds; a prefix given to a model without
+    one is ignored, as the reference ignores it; the per-layer model of
+    the VLM prefix decoder and of the encoder-decoder takes their stub
+    inputs (their parity is in tests/test_torch_vlm.py and
+    tests/test_torch_encdec.py)."""
     own = M.init_params(get_config("deepseek-v2-lite-16b").reduced(),
                         device="cpu")
     assert "moe" in own["layers"][1] and "w_dkv" in own["layers"][0]["attn"]
     _, cfg, _, params, toks = _setup("tinyllama-1.1b", 2)
-    for key in ("prefix_emb", "enc_frames"):
-        batch = {"tokens": torch.from_numpy(toks),
-                 key: torch.zeros((B, 4, cfg.d_model))}
-        with pytest.raises(NotImplementedError, match="A6"):
-            M.loss_fn(params, cfg, batch)
+    plain = {"tokens": torch.from_numpy(toks)}
+    with torch.no_grad():
+        want = M.loss_fn(params, cfg, plain)
+        got = M.loss_fn(params, cfg, dict(plain, prefix_emb=torch.zeros(
+            (B, 4, cfg.d_model))))
+    assert torch.equal(got, want)
+    from repro_torch.data.pipeline import materialize_batch
+    for arch in ("paligemma-3b", "seamless-m4t-medium"):
+        c = get_config(arch).reduced()
+        batch = materialize_batch(c, 2, 8, device="cpu")
+        with torch.no_grad():
+            loss = M.loss_fn(M.init_params(c, device="cpu"), c, batch)
+        assert torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])

@@ -97,7 +97,7 @@ def test_grads_match_jax_grad(arch, remat):
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
                                            (False, None)])
 def test_query_chunked_attention_matches_jax(causal, window):
-    """The long-sequence online-softmax path (the reference's
+    """The long-sequence query-chunked path (the reference's
     ``_flash_xla``) at small blocks, GQA with 2 query heads per KV head."""
     rng = np.random.default_rng(0)
     q = rng.standard_normal((2, 128, 4, 16)).astype(np.float32)
@@ -106,7 +106,7 @@ def test_query_chunked_attention_matches_jax(causal, window):
     ref = JL._flash_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                         causal, window, qb=32, kb=32)
     got = L._flash_xla(torch.from_numpy(q), torch.from_numpy(k),
-                       torch.from_numpy(v), causal, window, qb=32, kb=32)
+                       torch.from_numpy(v), causal, window, qb=32)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
     dense = L._sdpa_dense(
@@ -114,6 +114,72 @@ def test_query_chunked_attention_matches_jax(causal, window):
         L._causal_bias(128, 128, causal, window, "cpu")[None, None, None])
     np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _peak_live_bytes(fn, *args) -> int:
+    """The most bytes of intermediates alive at once in the traced graph
+    of ``fn``'s forward and backward (each value lives from its node to its
+    last use; a view shares its base's bytes)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    def step(*xs):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        return torch.autograd.grad(fn(*xs).square().sum(), xs)
+
+    nodes = list(make_fx(step, tracing_mode="fake")(*args).graph.nodes)
+    pos = {n: i for i, n in enumerate(nodes)}
+    root, size, last = {}, {}, {}
+    for n in nodes:
+        if n.op != "call_function" or not isinstance(n.meta.get("val"),
+                                                     torch.Tensor):
+            continue
+        base = n.args[0] if getattr(n.target, "is_view", False) else None
+        root[n] = root.get(base, n)
+        if root[n] is n:
+            size[n] = n.meta["val"].numel() * n.meta["val"].element_size()
+    for n, r in root.items():
+        last[r] = max([last.get(r, pos[n])] + [pos[u] for u in n.users])
+    delta = [0] * (len(nodes) + 1)
+    for r, b in size.items():
+        delta[pos[r]] += b
+        delta[last[r] + 1] -= b
+    live = peak = 0
+    for d in delta:
+        live += d
+        peak = max(peak, live)
+    return peak
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None)])
+def test_query_chunked_backward_holds_one_block(causal, window):
+    """The long-sequence path's forward and backward hold a few of one
+    query block's (B,H,qb,T) f32 scores at a time, not the (B,H,S,T) of the
+    dense path, 8 blocks here (about 4.3 blocks measured against 24.5 for
+    the dense path and 22 for one checkpoint over all rows), and their
+    gradients equal the dense path's."""
+    rng = np.random.default_rng(1)
+    B, S, H, KV, hd, qb = 1, 512, 4, 2, 16, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, h, hd)).astype(
+        np.float32)) for h in (H, KV, KV))
+
+    def chunked(q, k, v):
+        return L._flash_xla(q, k, v, causal, window, qb=qb)
+
+    def dense(q, k, v):
+        bias = L._causal_bias(S, S, causal, window, "cpu")
+        return L._sdpa_dense(q, k, v, bias[None, None, None])
+
+    block = B * H * qb * S * 4
+    assert _peak_live_bytes(chunked, q, k, v) <= 6 * block
+    assert _peak_live_bytes(dense, q, k, v) > 16 * block
+    grads = []
+    for f in (chunked, dense):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        grads.append(torch.autograd.grad(f(*xs).square().sum(), xs))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_bf16_layer_matches_jax():
