@@ -212,7 +212,24 @@ Phases, each of which stops the run with a nonzero exit on failure:
     the cross-attention's attention are plain, non-causal, as in the
     reference); 16 decode steps passing the encoder's output as
     ``memory``; the launcher's search and 4 steps at batch 4 x 2048.
-(y) the total seconds and the card's name and power limit again, a JSON
+(y) training the other blocks at full width and a cut depth:
+    recurrentgemma-9b at 8 layers (two (rec, rec, attn) cycles and the
+    two-layer tail), rwkv6-3b at 4 and deepseek-v2-lite-16b at 4 (1 dense,
+    3 MoE; weights drawn on the card).  Each step at batch 1 x 2048 is
+    traced on meta tensors and searched for ``h100_superpod`` by the
+    launcher's ``search_strategy``; the Plan is enacted by
+    ``build_train_step`` under ``layout="dp"`` and under ``layout="tp"``
+    on a (1, 1) mesh (the RG-LRU, RWKV-6, MLA and expert-parallel blocks'
+    tensor-parallel paths at degree 1), 3 AdamW steps each (the
+    launcher's schedule) on the same weights and batches.  The counters are
+    zeroed just before each run and read just after: each sync kernel and
+    collective ran as often as the Plan implies, and no serving kernel ran.
+    Printed: trace seconds, prims and the WKV op's fx nodes (one forward
+    and one backward a layer), the Plan, step time, tokens/s, peak
+    memory, the model group's collectives, losses and gradient norms with
+    the layouts' gaps (under ``TP_LOSS_RTOL`` and ``TP_GNORM_RTOL``).  The
+    phase must finish within ``TRAIN_BLOCKS_LIMIT_S``.
+(z) the total seconds and the card's name and power limit again, a JSON
     line of every kernel's numbers, then the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
@@ -249,13 +266,16 @@ from repro_torch.core import (DOT, OPAQUE, OracleEstimator,  # noqa: E402
 from repro_torch.core import gnn as GNN  # noqa: E402
 from repro_torch.core import profile as PROF  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402
+from repro_torch.distributed import tensor_parallel as TPAR  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import stacked as ST  # noqa: E402
 from repro_torch.optim import adamw, apply_updates  # noqa: E402
+from repro_torch.optim import linear_warmup_cosine  # noqa: E402
 from repro_torch.optim import clip_by_global_norm  # noqa: E402
 from repro_torch.serving import engine as ENG  # noqa: E402
 from repro_torch.serving import plan as SP  # noqa: E402
@@ -325,6 +345,12 @@ SERVE_PLAN_TP = 1
 # scale.
 TP_STEPS = 4
 TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-2, 2e-2
+# the training phase of the other blocks (y): each model's cut depth, the
+# batch, the steps of each layout (the first a warm-up) and the most
+# seconds the phase may take
+TRAIN_DEPTHS = {RG_ARCH: 8, RWKV_ARCH: 4, DS_ARCH: 4}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 2048, 3
+TRAIN_BLOCKS_LIMIT_S = 180.0
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -2195,14 +2221,14 @@ def _recording_routes(record: list):
     computes them (the same ops on the same tensors)."""
     orig = L.moe_fwd
 
-    def moe_fwd(p, cfg, x, *, route_rows=False):
+    def moe_fwd(p, cfg, x, *, route_rows=False, tp=None):
         G = x.shape[0] if route_rows else 1
         logits = (x.reshape(G, -1, x.shape[-1])
                   @ p["router"].to(x.dtype)).float()
         top = torch.sort(torch.softmax(logits, -1), dim=-1,
                          descending=True, stable=True)[1][..., :cfg.moe.top_k]
         record.append((logits, top))
-        return orig(p, cfg, x, route_rows=route_rows)
+        return orig(p, cfg, x, route_rows=route_rows, tp=tp)
     return orig, moe_fwd
 
 
@@ -2673,6 +2699,184 @@ def phase_multimodal(dev, arch: str) -> tuple[float, int]:
     return err, launches
 
 
+def _train_blocks_run(dev, cfg, strat, layout: str, want: dict,
+                      calls: dict) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``cfg`` under ``layout`` through
+    ``strat`` on weights drawn on the card from seed 0 and seeded batches,
+    the counters zeroed just before and checked just after.  Returns the
+    run's losses, gradient norms, median step, peak and collectives."""
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    opt = adamw(linear_warmup_cosine(1e-3, warmup=20,
+                                     total_steps=TRAIN_STEPS),
+                weight_decay=0.01)
+    mesh = make_debug_mesh((1, 1), device="cuda") if layout == "tp" else None
+    step = TS.build_train_step(cfg, layout=layout, mesh=mesh, strategy=strat,
+                               optimizer=opt, remat=True)
+    if step.tp is not None:
+        params = TPAR.shard_params(params, step.tp)
+    state = opt[0](ST.leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(25)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    TS.reset_collectives()
+    losses, norms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH,
+                                                        TRAIN_SEQ),
+                                         device=dev, generator=gen)}
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {name: getattr(K, name).launches for name in want}
+    serving = {name: getattr(K, name).launches
+               for name in ("flash_attention", "rglru_scan", "rwkv6_wkv")}
+    coll = dict(TS.COLLECTIVES)
+    what = f"{cfg.name} at {cfg.n_layers} layers, layout {layout!r}"
+    if launches != want or coll != calls or any(serving.values()):
+        raise AssertionError(f"{what}: launches {launches}, collectives "
+                             f"{coll}, serving kernels {serving}; the Plan "
+                             f"implies {want}, {calls} and none")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{what}: losses {losses}, norms {norms}")
+    run = {"losses": losses, "norms": norms, "launches": launches,
+           "collectives": coll, "step_s": statistics.median(times[1:]),
+           "first_s": times[0], "peak": torch.cuda.max_memory_allocated(),
+           "tp_calls": None if step.tp is None else dict(step.tp.calls)}
+    del params, state, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def _wkv_op_times(dev, cfg) -> None:
+    """The model's WKV-6 scan op (the training path's, in plain PyTorch) at
+    one layer's shapes in phase (y): the forward and the forward with its
+    backward, host clock, synced, median of 3 after a warm-up."""
+    from repro_torch.models import recurrent as REC
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).mul_(0.5)
+               .bfloat16().requires_grad_(True) for _ in range(3))
+    w = (torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.45
+         ).requires_grad_(True)
+    u = (0.1 * torch.randn(shape[2:], generator=gen, device=dev)
+         ).requires_grad_(True)
+
+    def wall_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def fwd_bwd():
+        out, final = REC._wkv6_scan(r, k, v, w, u)
+        torch.autograd.grad(out.float().sum() + final.sum(), (r, k, v, w, u))
+
+    with torch.no_grad():
+        fwd = wall_ms(lambda: REC._wkv6_scan(r, k, v, w, u))
+    both = wall_ms(fwd_bwd)
+    print(f"WKV-6 scan op at {shape} (bf16 r, k, v, f32 w, u; chunks of "
+          f"{REC.wkv_chunk(*shape)} steps): forward {fwd:.2f} ms, forward "
+          f"and backward {both:.2f} ms (host clock, synced); a remat step "
+          f"runs 2 forwards and 1 backward a layer")
+
+
+def _train_blocks(dev, cfg) -> None:
+    """One model of phase (y): trace, search, both layouts, the gate."""
+    from collections import Counter
+
+    from repro_torch.core import trace as TRACE
+
+    graphs: list = []
+    orig = TRACE.graph_from_fx
+    TRACE.graph_from_fx = lambda gm, *a: (graphs.append(gm), orig(gm, *a))[1]
+    try:
+        plan = TRAIN.search_strategy(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     n_devices=1, cluster=SEARCH_CLUSTER)
+    finally:
+        TRACE.graph_from_fx = orig
+    names = Counter(TRACE._op_name(n) for n in graphs[0].graph.nodes)
+    prov = plan.provenance
+    trace = prov["trace"]
+    leaves = ST.leaves(meta_params(cfg))
+    if sorted(i for b in plan.buckets for i in b) != list(range(len(leaves))):
+        raise AssertionError(f"{cfg.name}: the Plan's buckets do not cover "
+                             f"the {len(leaves)} leaves once each")
+    strat = plan.grad_sync(leaves)
+    want, calls = implied_counts(strat, leaves, TRAIN_STEPS)
+    print(f"train {cfg.name} at {cfg.n_layers} layers (batch {TRAIN_BATCH} "
+          f"x seq {TRAIN_SEQ}, {sum(p.numel() for p in leaves) / 1e9:.2f}B "
+          f"parameters in {len(leaves)} leaves): {trace['prims']} prims "
+          f"{trace['by_category']} from {len(graphs[0].graph.nodes)} fx "
+          f"nodes, WKV ops {names['wkv6_scan']} forward and "
+          f"{names['wkv6_scan_bwd']} backward; trace {trace['wall_time']:.2f} "
+          f"s, search on {SEARCH_CLUSTER} {prov['search_wall_time']:.3f} s "
+          f"({prov['steps']} steps, {prov['simulations']} simulations; "
+          f"simulated {prov['initial_cost'] * 1e3:.3f} -> "
+          f"{prov['best_cost'] * 1e3:.3f} ms); {_describe_buckets(plan)}")
+    if cfg.block == "rwkv" and not (names["wkv6_scan"] == names[
+            "wkv6_scan_bwd"] == cfg.n_layers):
+        raise AssertionError(f"{cfg.name}: WKV ops {names['wkv6_scan']} and "
+                             f"{names['wkv6_scan_bwd']}, want one each a "
+                             f"layer")
+    if cfg.block == "rwkv":
+        _wkv_op_times(dev, cfg)
+    runs = {layout: _train_blocks_run(dev, cfg, strat, layout, want, calls)
+            for layout in ("dp", "tp")}
+    for layout, r in runs.items():
+        print(f"train {cfg.name} layout {layout!r}: losses {r['losses']}, "
+              f"grad norms {r['norms']}; step {r['step_s'] * 1e3:.1f} ms "
+              f"(median of steps 2..{TRAIN_STEPS}, host clock, synced; "
+              f"first {r['first_s'] * 1e3:.1f} ms), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / r['step_s']:.0f} tokens/s, "
+              f"max_memory_allocated {r['peak'] / 2**30:.2f} GiB; launches "
+              f"{r['launches']}; collectives {r['collectives']} (as the Plan "
+              f"implies); model group's collectives {r['tp_calls']}")
+    dp, tp = runs["dp"], runs["tp"]
+    gaps = {k: [abs(a - b) / abs(b) for a, b in zip(tp[k], dp[k])]
+            for k in ("losses", "norms")}
+    print(f"train {cfg.name}: relative gaps tp against dp, losses "
+          f"{['%.2e' % g for g in gaps['losses']]}, grad norms "
+          f"{['%.2e' % g for g in gaps['norms']]}; step "
+          f"{tp['step_s'] / dp['step_s']:.4f}x, peak "
+          f"{tp['peak'] / dp['peak']:.4f}x")
+    if max(gaps["losses"]) > TP_LOSS_RTOL or \
+            max(gaps["norms"]) > TP_GNORM_RTOL:
+        raise AssertionError(f"{cfg.name} tp against dp: relative gaps "
+                             f"{gaps} over {TP_LOSS_RTOL} / {TP_GNORM_RTOL}")
+
+
+def phase_train_blocks(dev) -> None:
+    """Phase (y): the RG-LRU hybrid, RWKV-6 and MLA with routed experts
+    trained at full width and the depths of ``TRAIN_DEPTHS`` in a one-rank
+    NCCL group, under both layouts; within ``TRAIN_BLOCKS_LIMIT_S``."""
+    t0 = time.time()
+    created = TRAIN.init_process_group(dev)
+    try:
+        for arch, depth in TRAIN_DEPTHS.items():
+            _train_blocks(dev, dataclasses.replace(get_config(arch),
+                                                   n_layers=depth))
+    finally:
+        if created:
+            dist.destroy_process_group()
+    wall = time.time() - t0
+    print(f"phase (y): {wall:.1f} s (limit {TRAIN_BLOCKS_LIMIT_S} s); card "
+          f"{card_line()}")
+    if wall > TRAIN_BLOCKS_LIMIT_S:
+        raise AssertionError(f"phase (y) took {wall:.1f} s, over "
+                             f"{TRAIN_BLOCKS_LIMIT_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2744,6 +2948,7 @@ def main() -> int:
         raise AssertionError(f"phases (w) and (x) took "
                              f"{time.time() - t_mm:.1f} s, over "
                              f"{MM_LIMIT_S} s")
+    phase_train_blocks(dev)
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
     if any(served_ds.values()):
         raise AssertionError(f"{DS_ARCH} serving launched {served_ds}")

@@ -13,7 +13,10 @@ one :class:`PrimOp` with the reference's categories and cost rules:
 * REDUCE (sums, maxes, means, softmaxes): in_bytes / 4 FLOPs;
 * LAYOUT (views, permutes, casts, cat, slices, index, gather, scatter,
   embedding, factories): no FLOPs, and reads at most what it writes;
-* OPAQUE: everything else, one FLOP per output element.
+* OPAQUE: everything else, one FLOP per output element; the model's WKV-6
+  scan (one custom op forward, one backward) is priced as the reference
+  prices its ``lax.scan``: the body's FLOPs and bytes times S
+  (:func:`wkv6_step_cost`).
 
 Nodes that launch nothing and have no jaxpr counterpart (``detach``,
 ``alias``, ``lift_fresh_copy``, ``getitem``) pass their producer through.
@@ -163,8 +166,36 @@ def _dot_flops(node) -> float:
     return 2.0 * float(out.numel()) * k
 
 
+def wkv6_step_cost(B: int, H: int, hd: int, backward: bool
+                   ) -> tuple[float, float, float, float]:
+    """(flops, in_bytes, out_bytes, dot_flops) of one step of the
+    reference's WKV-6 scan body (``repro/models/recurrent.py::_wkv6_scan``)
+    as its tracer prices the body's jaxpr, all f32: the forward step's two
+    einsums and four elementwise ops, or the backward step (the scan's
+    transpose: four dot products, eight elementwise ops, seven reductions).
+    ``n`` = B*H*hd, ``N`` = n*hd (the state), ``h`` = H*hd (the bonus)."""
+    h = float(H * hd)
+    n = B * h
+    N = n * hd
+    if backward:
+        return 16 * N + n + 3 * h, 4 * (16 * N + 8 * n + 7 * h), \
+            4 * (8 * N + 6 * n + 6 * h), 8 * N
+    return 8 * N, 4 * (7 * N + 5 * n + h), 4 * (5 * N + 2 * n), 4 * N
+
+
+# The model's WKV-6 scan (``models/recurrent.py``): one custom op forward
+# and one backward, priced as the reference prices its scan nested in a
+# layer group's scan: the body's cost times S.
+_SCAN_OPS = {"wkv6_scan": False, "wkv6_scan_bwd": True}
+
+
 def _node_cost(node) -> tuple[str, float, float, float]:
     """(category, flops, in_bytes, out_bytes) of one aten node."""
+    name = _op_name(node)
+    if name in _SCAN_OPS:
+        B, S, H, hd = node.args[0].meta["val"].shape
+        f, i, o, _ = wkv6_step_cost(B, H, hd, _SCAN_OPS[name])
+        return OPAQUE, S * f, S * i, S * o
     cat = _classify(node)
     in_b = sum(_nbytes(a.meta.get("val")) for a in _arg_nodes(node))
     out_b = _nbytes(node.meta.get("val"))

@@ -2,9 +2,11 @@
 part GSPMD plays in the reference's ``layout="tp"`` step.
 
 :class:`ModelGroup` holds the group and this rank's index in it;
-:class:`TPContext` adds the spec of every leaf of a dense model's
-stacked parameter tree by the reference's rules
-(:mod:`repro_torch.distributed.sharding`).
+:class:`TPContext` adds the spec of every leaf of a model's stacked
+parameter tree by the reference's rules
+(:mod:`repro_torch.distributed.sharding`), for every block the port has:
+attention, the FFN, MLA, the routed experts (sharded by expert: expert
+parallelism), the RG-LRU block and RWKV-6's time and channel mix.
 :func:`shard_params` takes a full tree to this rank's local slices and
 :func:`gather_params` takes them back.
 
@@ -24,8 +26,12 @@ Placed so, every activation that all ranks of the group hold whole (the
 residual stream, the loss) has the whole gradient on every rank, and every
 replicated leaf's gradient comes out complete and equal on every rank:
 a replicated leaf of which a rank uses only a slice (a bias of local
-heads, the shared KV heads of unaligned attention) is passed through
-``copy`` before it is sliced.  Explicit collectives stand where DTensor's
+heads, the shared KV heads of unaligned attention, the RWKV decay, MLA's
+latent) is passed through ``copy`` before it is sliced, and a value that
+every rank computes whole from replicated leaves reaches a sharded
+projection through ``copy`` on that path alone (the MoE router's combine
+weights: its load-balance loss is whole on every rank already).
+Explicit collectives stand where DTensor's
 propagation would not: the model's functional layers mix plain tensors
 (rope tables, masks, positions) into every op.
 """
@@ -40,18 +46,18 @@ from .. import tree as T
 from ..models.config import ModelConfig
 from . import sharding as SH
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Tensor parallelism is ported for dense attention blocks: GQA/MQA
-    attention with or without qkv bias, partial rope, GLU or plain MLP,
-    RMS or layer norm, tied or untied embeddings; the encoder-decoder's
-    encoder layers and cross-attention, and the VLM prefix (its
-    ``vision_proj`` replicated, as the encoder's ``in_proj``)."""
-    if cfg.block != "attn" or cfg.moe is not None or cfg.recurrent is not None:
+def check_heads(cfg: ModelConfig, size: int) -> None:
+    """The port computes each attention, WKV or MLA head whole on one rank:
+    a block whose head projections the rules shard over ``size`` ranks
+    needs ``n_heads % size == 0`` (grouped-query attention has its own
+    path for heads that do not divide, as the reference's rules do)."""
+    per_head = cfg.block in ("rwkv", "mla")
+    if per_head and size > 1 and (cfg.n_heads * cfg.hd) % size == 0 \
+            and cfg.n_heads % size:
         raise NotImplementedError(
-            f"tensor parallelism for {cfg.name} (block {cfg.block!r}"
-            f"{', experts' if cfg.moe else ''}"
-            f"{', recurrent' if cfg.recurrent else ''}) is not ported yet "
-            f"(ROADMAP A5b)")
+            f"tensor parallelism for {cfg.name}: {cfg.n_heads} "
+            f"{cfg.block.upper()} heads do not split over {size} model "
+            f"ranks, and the port computes each head on one rank")
 
 
 class ModelGroup:
@@ -97,34 +103,69 @@ class ModelGroup:
 
 class TPContext(ModelGroup):
     """A :class:`ModelGroup` with the spec of each leaf of ``cfg``'s
-    stacked parameter tree on a ``model`` dim of the group's size."""
+    stacked parameter tree on a ``model`` dim of the group's size.
+    :meth:`layer` gives decoder layer ``li``'s view, which finds the specs
+    of that layer's own group (a DeepSeek-V2 model's dense first layers
+    and its MoE layers, a hybrid's ``cycle`` and ``tail`` and each one's
+    ``b{j}`` positions)."""
 
     def __init__(self, cfg: ModelConfig, group=None):
         from ..models import stacked as ST
 
-        check_dense(cfg)
         super().__init__(group)
+        check_heads(cfg, self.size)
         with torch.device("meta"):
             full = ST.init_params(cfg, device="meta")
         self.specs = SH.param_specs(full, {"model": self.size}, cfg=cfg)
         self.dims = [SH.spec_dim(s) for s in self.specs]
         self._by_names = {}
+        by_group: dict = {}
         for (path, _), d in zip(T.leaves_with_paths(full), self.dims):
             names = SH.path_names(path)
-            if names[:2] == ["groups", "0"]:
-                # a layer's view of a stacked leaf drops the layer dim
-                self._by_names[tuple(names[2:])] = None if d is None else d - 1
+            # a layer's view of a stacked leaf drops the layer dim
+            d_layer = None if d is None else d - 1
+            if names[0] == "groups":
+                by_group.setdefault(int(names[1]), {})[tuple(names[2:])] = \
+                    d_layer
             elif names[:2] == ["encoder", "layers"]:
-                self._by_names[("encoder", *names[2:])] = (
-                    None if d is None else d - 1)
+                self._by_names[("encoder", *names[2:])] = d_layer
             else:
                 self._by_names[tuple(names)] = d
+        self._layers = []
+        for gi, g in enumerate(ST.layer_groups(cfg)):
+            dims = by_group[gi]
+            if g["kind"] == "plain":
+                per_pos = [dims]
+            else:
+                per_pos = [{n[1:]: d for n, d in dims.items()
+                            if n[0] == f"b{j}"} for j in range(g["cycle"])]
+            for _ in range(g["count"]):
+                self._layers += [_LayerView(self, p) for p in per_pos]
 
     def dim(self, *names: str) -> Optional[int]:
-        """The model-sharded dim of a top-level leaf (``dim("embed")``), of
-        a decoder layer's leaf (``dim("attn", "wq")``) or of an encoder
-        layer's (``dim("encoder", "attn", "wq")``), or None."""
+        """The model-sharded dim of a top-level leaf (``dim("embed")``) or
+        of an encoder layer's (``dim("encoder", "attn", "wq")``), or
+        None."""
         return self._by_names[names]
+
+    def layer(self, li: int) -> "_LayerView":
+        """Decoder layer ``li``'s view of the context: the same group and
+        collectives, and ``dim("attn", "wq")`` of that layer's leaves."""
+        return self._layers[li]
+
+
+class _LayerView:
+    """One decoder layer's view of a :class:`TPContext`: ``dim`` reads the
+    layer's own leaves; everything else is the context's."""
+
+    def __init__(self, tp: TPContext, dims: dict):
+        self._tp, self._dims = tp, dims
+
+    def dim(self, *names: str) -> Optional[int]:
+        return self._dims[names]
+
+    def __getattr__(self, name):
+        return getattr(self._tp, name)
 
 
 class _CopyToModel(torch.autograd.Function):

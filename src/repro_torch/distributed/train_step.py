@@ -1,7 +1,7 @@
 """DisCo-enacted train step over ``torch.distributed`` (port of
 ``repro/distributed/train_step.py``, mode ``ddp_tp`` with ``layout="dp"``
-or, for dense decoders, ``layout="tp"`` on a ``("data", "model")`` mesh,
-each with optional ZeRO-1 moments).
+or ``layout="tp"`` on a ``("data", "model")`` mesh, each with optional
+ZeRO-1 moments).
 
 Gradient synchronisation is explicit: the leaves are partitioned into the
 buckets of a searched :class:`GradSyncStrategy`, and each bucket is
@@ -310,13 +310,16 @@ def build_train_step(
     ``layout="dp"``: every rank of ``group`` (default: the world) is a
     data rank holding the whole tree.  ``layout="tp"``: ``mesh`` (a
     :class:`repro_torch.launch.mesh.Mesh`) is a ``("data", "model")``
-    mesh; ``params`` holds this rank's slices of a dense decoder
+    mesh; ``params`` holds this rank's slices of the model
     (:func:`repro_torch.distributed.tensor_parallel.shard_params` with
-    ``step.tp``), the model group runs the tensor-parallel forward and
+    ``step.tp``; every architecture, the routed experts sharded by
+    expert), the model group runs the tensor-parallel forward and
     backward, and the data group syncs the local slices' gradients bucket
     by bucket (the bucket indices are the tree's; each bucket's bytes
     shrink by the slicing), as the reference's Megatron-DDP style sync
-    does.  ``zero1=True`` keeps each AdamW moment's slice along the leaf's
+    does.  Each data rank routes its own rows through the experts, as the
+    reference's ``layout="dp"`` does; its ``layout="tp"`` routes the
+    global batch (ROADMAP C21).  ``zero1=True`` keeps each AdamW moment's slice along the leaf's
     largest free dim that the data group's size divides (the reference's
     ZeRO-1 rule; a moment still whole in ``opt_state`` is sliced on the
     way in) and all-gathers the updated parameter slices over the data

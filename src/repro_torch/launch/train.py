@@ -23,7 +23,7 @@ local TCP rendezvous.  NCCL on CUDA, gloo on the CPU.
 ``--mesh`` picks the layout.  ``dp`` (the default): every rank is a data
 rank holding the whole model (the reference's ``layout="dp"``).
 ``debug``: the reference's default, a (4, 2) ``("data", "model")`` mesh
-on 8 ranks with ``layout="tp"`` (dense decoders).  ``single``: a (1, 1)
+on 8 ranks with ``layout="tp"``.  ``single``: a (1, 1)
 mesh with ``layout="tp"``, one rank.  The search prices the unsharded
 step on the data ranks, as the reference's does.  Checkpoints hold the
 full tree under every mesh (the slices are gathered before a save and

@@ -437,23 +437,39 @@ def _rms(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
             cache: Optional[dict] = None, pos=None,
-            return_cache: bool = False, cache_len: int = 0):
+            return_cache: bool = False, cache_len: int = 0, tp=None):
     """Multi-head Latent Attention (DeepSeek-V2).  The decode cache holds
     only the compressed latent ``c_kv`` (B, T, kv_lora_rank) and the shared
     rope key ``k_rope`` (B, T, qk_rope_head_dim).  Train/prefill (``cache``
     None) folds (nope ++ rope) into one head dim through :func:`sdpa`,
     never the flash kernel, as the reference does; decode writes each row's
     latent at its own position in place (clamped, as the reference's
-    ``dynamic_update_slice``) and attends over the whole cache, masked."""
+    ``dynamic_update_slice``) and attends over the whole cache, masked.
+
+    Under a tensor-parallel context ``tp`` (training) whose rules shard
+    the heads, this rank computes its ``H / m`` heads: ``wq`` (or
+    ``w_uq`` after the replicated ``w_dq`` and ``q_norm``), ``w_uk`` and
+    ``w_uv`` are column-sharded over whole heads (their head-major
+    columns); the latent and the shared rope key, computed whole from
+    replicated leaves, reach the local heads through ``copy``; ``wo`` is
+    row-sharded, its partial sums reduced."""
     m = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    sharded = tp is not None and tp.dim(
+        "attn", "w_uq" if m.q_lora_rank else "wq") is not None
+
+    def heads(t):                   # a replicated input of local heads
+        return tp.copy(t) if sharded else t
+
     if m.q_lora_rank:
         q = _rms(x @ p["w_dq"].to(x.dtype), p["q_norm"]["scale"])
-        q = q @ p["w_uq"].to(x.dtype)
+        q = heads(q) @ p["w_uq"].to(x.dtype)
     else:
-        q = x @ p["wq"].to(x.dtype)
+        q = heads(x) @ p["wq"].to(x.dtype)
+    if sharded:
+        H //= tp.size
     q = q.reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg, rot_dim=dr)
@@ -461,6 +477,7 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     c_kv = _rms(x @ p["w_dkv"].to(x.dtype), p["kv_norm"]["scale"])
     k_rope = apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :],
                         positions, cfg, rot_dim=dr)         # (B, S, 1, dr)
+    c_kv, k_rope = heads(c_kv), heads(k_rope)
 
     new_cache = None
     if cache is not None:
@@ -502,6 +519,8 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
         v_pad = F.pad(vv, (0, q_eff.shape[-1] - m.v_head_dim))
         out = sdpa(q_eff, k_eff, v_pad, None, causal=True)[..., :m.v_head_dim]
         out = out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+        if sharded:
+            out = tp.reduce(out)
         return (out, new_cache) if return_cache else out
     scale = 1.0 / np.sqrt(dn + dr)
     s_nope = torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
@@ -570,7 +589,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, lead, cast) -> dict:
     return p
 
 
-def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False):
+def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False,
+            tp=None):
     """Top-k routed experts with sort-based dispatch, as the reference's
     ``moe_fwd``: a softmax router, the top k with ties to the lower index,
     renormalised weights and the Switch load-balance aux loss; the token
@@ -584,13 +604,24 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False):
     ``route_rows`` routes each batch row as a batch of its own (T = S per
     row), as the reference engine's vmap over batch-1 decode steps does;
     the aux loss is then the rows' mean.  Counts use a static-shape
-    scatter-add, so the function traces on meta tensors."""
+    scatter-add, so the function traces on meta tensors.
+
+    Under a tensor-parallel context ``tp`` (training) whose rules shard the
+    expert stacks, expert parallelism: every rank routes all tokens with
+    the replicated router (the same routing and capacity everywhere) and
+    runs its ``E / m`` experts' slots of the buffer; their weighted
+    outputs are partial sums, reduced, and the tokens reach the local
+    experts through ``copy``.  The router's gradient has two parts: the
+    aux loss's, whole on every rank, and the combine weights', the local
+    experts' share only, so the weights (and only they) pass through
+    ``copy``.  The shared experts follow :func:`mlp_fwd`'s rule."""
     e = cfg.moe
     B, S, D = x.shape
     G, T = (B, S) if route_rows else (1, B * S)
     k, E = e.top_k, e.n_routed
     C = max(int(np.ceil(e.capacity_factor * k * T / E)), min(8, T * k))
     dev, dt = x.device, x.dtype
+    sharded = tp is not None and tp.dim("moe", "w_up") is not None
     xt = x.reshape(G, T, D)
     logits = (xt @ p["router"].to(dt)).float()
     probs = torch.softmax(logits, dim=-1)                   # (G, T, E)
@@ -603,7 +634,7 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False):
     aux = (e.aux_loss_coef * E * (density * router_prob).sum(-1)).mean()
 
     flat_e = topi.reshape(G, T * k)
-    flat_w = topv.reshape(G, T * k).to(dt)
+    flat_w = (tp.copy(topv) if sharded else topv).reshape(G, T * k).to(dt)
     n = T * k
     flat_tok = torch.arange(n, device=dev) // k
     order = torch.argsort(flat_e, dim=-1, stable=True)
@@ -615,19 +646,29 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False):
     keep = (pos_in_e < C).to(dt)
     slot = sorted_e * C + torch.clamp(pos_in_e, max=C - 1)
     tok_sorted = flat_tok[order]                            # (G, n)
-    rows = xt.gather(1, tok_sorted[..., None].expand(G, n, D))
+    rows = (tp.copy(xt) if sharded else xt).gather(
+        1, tok_sorted[..., None].expand(G, n, D))
     buf = torch.zeros((G, E * C, D), dtype=dt, device=dev).scatter_add_(
         1, slot[..., None].expand(G, n, D), rows * keep[..., None])
+    w_sorted = flat_w.gather(-1, order) * keep
+    El, e0 = E, 0
+    if sharded:
+        # this rank's experts' slots; the copies routed elsewhere add 0
+        El = E // tp.size
+        e0 = tp.rank * El
+        buf = buf[:, e0 * C:(e0 + El) * C]
+        mine = (sorted_e >= e0) & (sorted_e < e0 + El)
+        w_sorted = w_sorted * mine.to(dt)
+        slot = torch.where(mine, slot - e0 * C, 0)
     # experts as one batched GEMM over E, the G groups' slots side by side
-    xe = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    xe = buf.reshape(G, El, C, D).transpose(0, 1).reshape(El, G * C, D)
     up = torch.bmm(xe, p["w_up"].to(dt))
     if cfg.glu:
         h = _act(cfg, torch.bmm(xe, p["w_gate"].to(dt))) * up
     else:
         h = _act(cfg, up)
     out_e = torch.bmm(h, p["w_down"].to(dt))
-    out_e = out_e.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
-    w_sorted = flat_w.gather(-1, order) * keep
+    out_e = out_e.reshape(El, G, C, D).transpose(0, 1).reshape(G, El * C, D)
     contrib = out_e.gather(1, slot[..., None].expand(G, n, D)) \
         * w_sorted[..., None]
     # back into token order: unsort, then each token's k contributions in
@@ -639,6 +680,8 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False):
     out = torch.zeros((G, T, D), dtype=dt, device=dev)
     for j in range(k):
         out = out + by_tok[:, :, j]
+    if sharded:
+        out = tp.reduce(out)
     if e.n_shared:
-        out = out + mlp_fwd(p["shared"], cfg, xt)
+        out = out + mlp_fwd(p["shared"], cfg, xt, tp, scope=("moe", "shared"))
     return out.reshape(B, S, D), aux

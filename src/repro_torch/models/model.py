@@ -201,9 +201,12 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     through the flash-attention kernel (never MLA, nor cross-attention, as
     in the reference) and the RG-LRU and WKV-6 recurrences through their
     kernels; ``route_rows`` routes each batch row's tokens through the
-    experts as a batch of their own.  ``tp``, a tensor-parallel context,
-    runs a dense block on this rank's slices."""
+    experts as a batch of their own.  ``tp``, a tensor-parallel context
+    (training only), runs the block on this rank's slices, with the
+    leaves' specs of layer ``li`` (``tp.layer(li)``)."""
     want_cache = return_cache or cache is not None
+    if tp is not None:
+        tp = tp.layer(li)
 
     def done(x, new_cache, aux=None):
         if with_aux:
@@ -216,20 +219,21 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     if cfg.block_kind(li) == "rwkv":
         tm_out, tnew = R.rwkv_time_mix(
             p["tmix"], cfg, h, state=cache["tmix"] if cache else None,
-            use_kernel=use_kernels)
+            use_kernel=use_kernels, tp=tp)
         x = x + tm_out
         h2 = L.norm_fwd(p["ln2"], cfg, x)
         cm_out, cnew = R.rwkv_channel_mix(
-            p["tmix"], cfg, h2, state=cache["cmix"] if cache else None)
+            p["tmix"], cfg, h2, state=cache["cmix"] if cache else None,
+            tp=tp)
         x = x + cm_out
         return done(x, {"tmix": tnew, "cmix": cnew} if want_cache else None)
     if cfg.block_kind(li) == "rec":
         r = R.recurrent_block_fwd(p["rec"], cfg, h, state=cache,
                                   return_state=return_cache,
-                                  use_kernel=use_kernels)
+                                  use_kernel=use_kernels, tp=tp)
     elif cfg.block == "mla":
         r = L.mla_fwd(p["attn"], cfg, h, positions, cache=cache, pos=pos,
-                      return_cache=return_cache, cache_len=cache_len)
+                      return_cache=return_cache, cache_len=cache_len, tp=tp)
     else:
         r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache,
                             pos=pos, window=cfg.window, use_flash=use_kernels,
@@ -243,7 +247,8 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     h2 = L.norm_fwd(p["ln2"], cfg, x)
     aux = None
     if cfg.is_moe_layer(li):
-        ff, aux = L.moe_fwd(p["moe"], cfg, h2, route_rows=route_rows)
+        ff, aux = L.moe_fwd(p["moe"], cfg, h2, route_rows=route_rows,
+                            tp=tp)
     else:
         ff = L.mlp_fwd(p["mlp"], cfg, h2, tp)
     return done(x + ff, new_cache, aux)

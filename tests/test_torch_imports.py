@@ -3,9 +3,10 @@ reference package ``repro`` blocked, as does ``chip_smoke.py``: the port
 keeps its own copies of what it needs from the reference.  Among them the
 serving plan, the examples, the analytic cost model, the MLA, MoE and
 int8-cache model code, the tensor-parallel layout (the sharding rules,
-the vocab-parallel embedding and cross-entropy and the mesh), and the
+the vocab-parallel embedding and cross-entropy and the mesh), the
 encoder-decoder and VLM prefix through the config, registry, data, model,
-facade, tracer and launcher."""
+facade, tracer and launcher, and the recurrent blocks with their WKV-6
+scan op."""
 import os
 import subprocess
 import sys
@@ -46,7 +47,7 @@ for name in ("repro_torch.serving.plan", "repro_torch.examples.quickstart",
              "repro_torch.models.model", "repro_torch.models.config",
              "repro_torch.configs", "repro_torch.data.pipeline",
              "repro_torch.plan.facade", "repro_torch.core.trace",
-             "repro_torch.launch.train"):
+             "repro_torch.launch.train", "repro_torch.models.recurrent"):
     assert name in names, name
 print(len(names))
 """

@@ -21,7 +21,8 @@ the results, which the tests read:
 * ZeRO-1 at (2, 2) and in the 4-rank ``layout="dp"``: parameters
   bit-equal to the unsharded update, each moment 1/dp per rank, the
   layouts' losses equal (the twin of ``test_dp_layout_and_zero1``);
-* full logits under TP.
+* full logits under TP;
+* a ``TPContext`` at degree 2 for every architecture's reduced config.
 
 A group of 8 ranks runs the launcher under ``--mesh debug`` from a
 checkpoint that ``--mesh dp`` saved, and ``--mesh dp`` resumes from its
@@ -48,10 +49,13 @@ from repro.models import vocab_parallel as JVP  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.optim import apply_updates as jax_apply  # noqa: E402
 from repro.optim import clip_by_global_norm as jax_clip  # noqa: E402
+from repro_torch import tree as T  # noqa: E402
+from repro_torch.configs import ARCHS as ALL_ARCHS  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.distributed import tensor_parallel as TP  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.models import stacked as ST  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ENV = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
@@ -162,6 +166,14 @@ for tied in (False, True):
 
 # ---- the TP step at (2, 2)
 mesh22 = make_debug_mesh((2, 2), device="cpu")
+# a context for every architecture: each leaf's sharded or not, and the
+# leaves each decoder layer's view finds
+for arch in meta["archs"]:
+    cfg = get_config(arch).reduced()
+    tp = TP.TPContext(cfg, mesh22.model)
+    out[f"ctx_{arch}"] = np.array([d is not None for d in tp.dims])
+    out[f"ctx_{arch}_layers"] = np.array(json.dumps(
+        [sorted(tp.layer(li)._dims) for li in range(cfg.n_layers)]))
 for name in meta["one_rank"]:
     cfg, full = setup(name)
     out[f"{name}_hist"], params, _ = run(cfg, full, 3, mesh=mesh22)
@@ -254,7 +266,8 @@ def four_ranks(tmp_path_factory):
         vp_cot=rng.standard_normal((VB, VS, D)).astype(np.float32))
     np.savez(d / "inputs.npz", **inputs)
     (d / "meta.json").write_text(json.dumps({"configs": CONFIGS,
-                                             "one_rank": ONE_RANK}))
+                                             "one_rank": ONE_RANK,
+                                             "archs": list(ALL_ARCHS)}))
     _spawn(_WORKER, d, 4)
     return jcfg, jparams, inputs, dict(np.load(d / "out.npz"))
 
@@ -432,14 +445,27 @@ def test_layouts_and_zero1_agree(four_ranks):
                                   out["full_numel"] // 4)
 
 
-def test_dense_only_and_fsdp_tp_not_ported():
-    cfg = get_config("deepseek-v2-lite-16b").reduced()
-    with pytest.raises(NotImplementedError, match="A5b"):
-        TP.TPContext(cfg)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        TP.check_dense(get_config("recurrentgemma-9b").reduced())
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_dense_only_and_fsdp_tp_not_ported(four_ranks, arch):
+    """No architecture is refused any more (tensor parallelism covers
+    MLA, the routed experts, the RG-LRU block and RWKV-6 since ROADMAP
+    A5b): ``TPContext`` builds at degree 2 on every reduced config, shards
+    the leaves that the rules shard at a model dim of 2, and gives each
+    decoder layer a view that finds that layer's own leaves (its group's,
+    without a cycle's ``b{j}``).  ``mode="fsdp_tp"`` (ZeRO-3) still
+    raises, naming A4."""
+    _, _, _, out = four_ranks
+    cfg = get_config(arch).reduced()
+    with torch.device("meta"):
+        full = ST.init_params(cfg, device="meta")
+    want = [SH.spec_dim(sp) is not None
+            for sp in SH.param_specs(full, {"model": 2}, cfg=cfg)]
+    assert out[f"ctx_{arch}"].tolist() == want and any(want)
+    layers = [sorted(SH.path_names(p) for p, _ in T.leaves_with_paths(lp))
+              for lp in ST._layers(full, cfg)]
+    assert json.loads(str(out[f"ctx_{arch}_layers"])) == layers
     with pytest.raises(NotImplementedError, match="A4"):
-        TS.build_train_step(get_config("tinyllama-1.1b"), mode="fsdp_tp")
+        TS.build_train_step(cfg, mode="fsdp_tp")
 
 
 # -------------------------------------------------------- checkpoints
