@@ -229,8 +229,37 @@ Phases, each of which stops the run with a nonzero exit on failure:
     memory, the model group's collectives, losses and gradient norms with
     the layouts' gaps (under ``TP_LOSS_RTOL`` and ``TP_GNORM_RTOL``).  The
     phase must finish within ``TRAIN_BLOCKS_LIMIT_S``.
-(z) the total seconds and the card's name and power limit again, a JSON
-    line of every kernel's numbers, then the device line last.
+(z) the reference's dry run in the port, and ZeRO-3 on the card:
+    - at the script's start two processes begin the full-width dry runs on
+      the host, each on a core of its own at the lowest priority (nice
+      19), ``python -m repro_torch.launch.dryrun --arch rwkv6-3b``
+      (its 40 heads split over 16 model ranks) and ``--arch
+      deepseek-coder-33b`` (``mode="fsdp_tp"``), each at ``train_4k`` as
+      rank 0 of the (16, 16) production mesh on the ``fake`` process-group
+      backend and fake tensors; the phase reads their JSON and prints each
+      run's flops, collectives per op and group size, argument + temp GiB
+      per device, ``best_time_s`` and seconds;
+    - the pricing CLI on phase (j)'s saved Plan (``--plan``) and phase
+      (s)'s serving plan (``--serve-plan``), in subprocesses: each exits 0
+      with the prices ``Plan.price()`` and ``ServingPlan.price()`` give
+      here; with a ``--cluster`` that differs from the Plan's it exits 1
+      and prints the differing fields;
+    - full-width deepseek-coder-33b at 4 of its 62 layers (2.58B
+      parameters; weights drawn on the card), batch 1 x 2048, 3 AdamW
+      steps under ``mode="fsdp_tp"`` on a one-rank NCCL (1, 1) mesh, then
+      the same 3 steps under ``ddp_tp`` with ``layout="tp"``: the counters
+      zeroed just before each run and read just after (the clip's
+      convert-copy launches, the data group's gathers and scatters),
+      losses and gradient norms within ``ZERO3_GAP`` (one rank: the same
+      sums in the same order); printed: step, tokens/s and
+      ``max_memory_allocated``, beside the dry run's argument + temp
+      bytes for the same step on a fake (1, 1) world (a peak the update
+      makes); then the forward and backward alone
+      (``step.loss_and_grads``) at ``MEM_BATCH`` x 2048, whose temp (the
+      gradients and activations) is printed beside the dry run's.
+    Within ``DRYRUN_LIMIT_S``.
+Then the total seconds and the card's name and power limit again, a JSON
+line of every kernel's numbers, and the device line last.
 
 Exits nonzero, printing no result, without a CUDA device.
 """
@@ -242,6 +271,7 @@ import math
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -254,8 +284,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+sys.path.insert(0, SRC)
 
 from repro_torch import plan as RP  # noqa: E402
 from repro_torch import tree as T  # noqa: E402
@@ -266,11 +296,13 @@ from repro_torch.core import (DOT, OPAQUE, OracleEstimator,  # noqa: E402
 from repro_torch.core import gnn as GNN  # noqa: E402
 from repro_torch.core import profile as PROF  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TPAR  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
-from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh, make_mesh  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import stacked as ST  # noqa: E402
@@ -351,6 +383,19 @@ TP_LOSS_RTOL, TP_GNORM_RTOL = 1e-2, 2e-2
 TRAIN_DEPTHS = {RG_ARCH: 8, RWKV_ARCH: 4, DS_ARCH: 4}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 2048, 3
 TRAIN_BLOCKS_LIMIT_S = 180.0
+# phase (z): the full-width dry runs (arch, shape), the ZeRO-3 model, its
+# cut depth, and the most seconds the phase may take (the dry runs start
+# with the script, on the host)
+DRYRUNS = (("rwkv6-3b", "train_4k"), ("deepseek-coder-33b", "train_4k"))
+FSDP_ARCH, FSDP_DEPTH = "deepseek-coder-33b", 4
+DRYRUN_LIMIT_S = 150.0
+# the most relative gap of fsdp_tp's losses and gradient norms from
+# ddp_tp's: on a (1, 1) mesh both modes sum the same numbers in the same
+# order (PR 26's calls 1 and 2 read 0)
+ZERO3_GAP = 1e-6
+# the rows of the forward-and-backward memory point, where the gradients
+# and activations, not the update, make the peak
+MEM_BATCH = 4
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -2148,14 +2193,15 @@ def phase_layers(dev, params, cfg) -> int:
     return launches
 
 
-def phase_serving_plan(dev, params, cfg, default: dict) -> tuple:
+def phase_serving_plan(dev, params, cfg, default: dict, keep: str) -> tuple:
     """The serving plan on the card: ``compile_serving`` for the tinyllama
     cell's traffic on ``h100_superpod`` at one card's TP group; the saved
     plan loads bit for bit; a compile through a ``PlanCache`` repeated is a
     hit with no simulation; then the plan is enacted by ``ServeEngine`` on
     the cell's requests (``phase_serving`` with the plan).  ``default`` is
-    phase (l)'s metrics and peak, printed beside the plan's.  Returns the
-    plan run's launches."""
+    phase (l)'s metrics and peak, printed beside the plan's; the plan is
+    saved as ``serve.json`` in ``keep`` for phase (z).  Returns the plan
+    run's launches."""
     wl = TINYLLAMA.workload
     kw = dict(cluster=SEARCH_CLUSTER, tp_degree=SERVE_PLAN_TP,
               cache_len=TINYLLAMA.cache_len, workload=wl)
@@ -2171,6 +2217,7 @@ def phase_serving_plan(dev, params, cfg, default: dict) -> tuple:
           f"{plan.predicted_ttft_p99_s * 1e3:.3f} ms; search {search_s:.3f} "
           f"s ({plan.provenance['steps']} steps, "
           f"{plan.provenance['simulations']} simulations)")
+    plan.save(os.path.join(keep, "serve.json"))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serve.json")
         plan.save(path)
@@ -2700,18 +2747,21 @@ def phase_multimodal(dev, arch: str) -> tuple[float, int]:
 
 
 def _train_blocks_run(dev, cfg, strat, layout: str, want: dict,
-                      calls: dict) -> dict:
-    """``TRAIN_STEPS`` AdamW steps of ``cfg`` under ``layout`` through
-    ``strat`` on weights drawn on the card from seed 0 and seeded batches,
-    the counters zeroed just before and checked just after.  Returns the
-    run's losses, gradient norms, median step, peak and collectives."""
+                      calls: dict, mode: str = "ddp_tp",
+                      data_calls: Optional[dict] = None) -> dict:
+    """``TRAIN_STEPS`` AdamW steps of ``cfg`` under ``mode`` and
+    ``layout`` through ``strat`` on weights drawn on the card from seed 0
+    and seeded batches, the counters zeroed just before and checked just
+    after (under ZeRO-3 also the data group's, against ``data_calls``).
+    Returns the run's losses, gradient norms, median step, peak and
+    collectives."""
     params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
     opt = adamw(linear_warmup_cosine(1e-3, warmup=20,
                                      total_steps=TRAIN_STEPS),
                 weight_decay=0.01)
     mesh = make_debug_mesh((1, 1), device="cuda") if layout == "tp" else None
-    step = TS.build_train_step(cfg, layout=layout, mesh=mesh, strategy=strat,
-                               optimizer=opt, remat=True)
+    step = TS.build_train_step(cfg, mode=mode, layout=layout, mesh=mesh,
+                               strategy=strat, optimizer=opt, remat=True)
     if step.tp is not None:
         params = TPAR.shard_params(params, step.tp)
     state = opt[0](ST.leaves(params))
@@ -2736,17 +2786,24 @@ def _train_blocks_run(dev, cfg, strat, layout: str, want: dict,
     serving = {name: getattr(K, name).launches
                for name in ("flash_attention", "rglru_scan", "rwkv6_wkv")}
     coll = dict(TS.COLLECTIVES)
-    what = f"{cfg.name} at {cfg.n_layers} layers, layout {layout!r}"
+    what = (f"{cfg.name} at {cfg.n_layers} layers, mode {mode!r}, layout "
+            f"{layout!r}")
     if launches != want or coll != calls or any(serving.values()):
         raise AssertionError(f"{what}: launches {launches}, collectives "
                              f"{coll}, serving kernels {serving}; the Plan "
                              f"implies {want}, {calls} and none")
+    got_data = getattr(step.tp, "data_calls", None)
+    if got_data != data_calls:
+        raise AssertionError(f"{what}: the data group's collectives "
+                             f"{got_data}, want {data_calls}")
     if not all(math.isfinite(v) for v in losses + norms):
         raise AssertionError(f"{what}: losses {losses}, norms {norms}")
     run = {"losses": losses, "norms": norms, "launches": launches,
            "collectives": coll, "step_s": statistics.median(times[1:]),
            "first_s": times[0], "peak": torch.cuda.max_memory_allocated(),
-           "tp_calls": None if step.tp is None else dict(step.tp.calls)}
+           "tp_calls": None if step.tp is None else dict(step.tp.calls),
+           "data_calls": got_data,
+           "params": sum(p.numel() for p in ST.leaves(params))}
     del params, state, step
     torch.cuda.empty_cache()
     return run
@@ -2877,10 +2934,294 @@ def phase_train_blocks(dev) -> None:
                              f"{TRAIN_BLOCKS_LIMIT_S} s")
 
 
+def start_dryruns(out: str) -> list:
+    """Start the full-width dry runs of :data:`DRYRUNS` on the host, one
+    process each (the launcher's CLI), writing their JSON and logs under
+    ``out``.  Returns ``[(arch, shape, process, start)]``."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    runs = []
+    for i, (arch, shape) in enumerate(DRYRUNS):
+        with open(os.path.join(out, f"{arch}.log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--out", out],
+                env=env, stdout=log, stderr=subprocess.STDOUT)
+        # one core of its own, from the last, at the lowest priority: the
+        # host-timed phases beside it keep the other cores
+        os.sched_setaffinity(proc.pid, {cores[-1 - i % len(cores)]})
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+        runs.append((arch, shape, proc, time.time()))
+    return runs
+
+
+def _dryrun_results(out: str, runs: list, deadline: float) -> None:
+    """Wait for the dry runs (until ``deadline``), check and print each:
+    flops, collectives per op and group size, argument + temp bytes per
+    device, the priced collective time and the seconds."""
+    for arch, shape, proc, start in runs:
+        proc.wait(timeout=max(deadline - time.time(), 1.0))
+        log = open(os.path.join(out, f"{arch}.log")).read()
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {arch} x {shape} exited "
+                                 f"{proc.returncode}:\n{log[-3000:]}")
+        with open(os.path.join(out, f"{arch}__{shape}__pod16x16.json")) as f:
+            res = json.load(f)
+        coll, mem, cl = res["collectives"], res["memory"], res["cluster"]
+        per_op = {op: {"count": d["count"], "bytes": d["bytes"],
+                       "by_group": {g: b["count"]
+                                    for g, b in d["by_group"].items()}}
+                  for op, d in coll["per_op"].items()}
+        gib = (mem["argument_bytes"] + mem["temp_bytes"]) / 2**30
+        print(f"dry run {arch} x {shape} x {res['mesh']} (rank 0 of 256, "
+              f"fake backend and tensors, mode {res['mode']}, grad accum "
+              f"{res['grad_accum']}): step {res['fake_step_s']} s on the "
+              f"host; flops {res['flops']:.6e} (GEMMs and attention), "
+              f"bytes accessed {res['bytes_accessed']:.6e}; collectives "
+              f"{per_op}, ici traffic {coll['ici_traffic_bytes']:.6e} B; "
+              f"argument + temp {gib:.3f} GiB per device (argument "
+              f"{mem['argument_bytes'] / 2**30:.3f}, temp "
+              f"{mem['temp_bytes'] / 2**30:.3f}); best_time_s "
+              f"{cl['best_time_s']:.6e} ({cl['best_algo']} on "
+              f"{cl['spec']['name']})")
+        if not (res["flops"] > 0 and gib > 0 and coll["per_op"]):
+            raise AssertionError(f"dry run {arch}: {res}")
+        # the split heads' gathers over the model group; ZeRO-3's
+        # scatters over the data group
+        op = "reduce-scatter" if res["mode"] == "fsdp_tp" else "all-gather"
+        if not per_op.get(op, {}).get("by_group", {}).get("16"):
+            raise AssertionError(f"dry run {arch}: no {op} over 16 ranks")
+
+
+def _price_cli(art: str) -> None:
+    """``--plan`` and ``--serve-plan`` on phase (j)'s and (s)'s saved
+    artifacts, in subprocesses run together: each exits 0 with the prices
+    the artifacts give here; ``--plan`` with another cluster exits 1 and
+    prints the differing fields."""
+    plan_path = os.path.join(art, "plan.json")
+    serve_path = os.path.join(art, "serve.json")
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    cmds = {"plan": base + ["--plan", plan_path],
+            "serve": base + ["--serve-plan", serve_path],
+            "mismatch": base + ["--plan", plan_path, "--cluster",
+                                "a100_nvlink_ib"]}
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = {k: subprocess.Popen(c + ["--out", os.path.join(art, k)],
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, c in cmds.items()}
+    try:
+        outs = {k: p.communicate(timeout=120) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for k, want in (("plan", 0), ("serve", 0), ("mismatch", 1)):
+        if procs[k].returncode != want:
+            raise AssertionError(f"dryrun {cmds[k][3:]} exited "
+                                 f"{procs[k].returncode}, want {want}:\n"
+                                 f"{outs[k][0][-2000:]}{outs[k][1][-2000:]}")
+
+    def canon(d) -> str:
+        return json.dumps(json.loads(json.dumps(d, default=repr)),
+                          sort_keys=True)
+
+    with open(os.path.join(art, "plan", "plan__plan.json")) as f:
+        got = json.load(f)["pricing"]
+    if canon(got) != canon(RP.Plan.load(plan_path).price()):
+        raise AssertionError("--plan priced otherwise than Plan.price()")
+    with open(os.path.join(art, "serve", "serve_plan__serve.json")) as f:
+        sgot = json.load(f)["pricing"]
+    if canon(sgot) != canon(SP.ServingPlan.load(serve_path).price()):
+        raise AssertionError("--serve-plan priced otherwise than "
+                             "ServingPlan.price()")
+    diff = [l.strip() for l in outs["mismatch"][0].splitlines()
+            if "fingerprint diff" in l or "CLUSTER MISMATCH" in l]
+    if not diff:
+        raise AssertionError(f"--cluster mismatch printed no diff: "
+                             f"{outs['mismatch'][0][-2000:]}")
+    print(f"dryrun --plan (phase (j)'s Plan): {got['buckets']} buckets, "
+          f"{got['total_grad_bytes']:.6e} B, serialized comm "
+          f"{got['serialized_comm_s'] * 1e3:.6f} ms, engine finish "
+          f"{got['engine_finish_s'] * 1e3:.6f} ms on {got['cluster']['name']}"
+          f", as Plan.price() gives; --serve-plan (phase (s)'s plan): "
+          f"{sgot['tokens_per_s']:.3f} tokens/s, ttft p99 "
+          f"{sgot['ttft_p99_s'] * 1e3:.6f} ms, as ServingPlan.price() "
+          f"gives; --plan --cluster a100_nvlink_ib exits 1: {diff}")
+
+
+def _zero3_counts(cfg) -> tuple:
+    """What ``TRAIN_STEPS`` steps of ``cfg`` under ``mode="fsdp_tp"`` on
+    a (1, 1) mesh launch and issue: a convert-copy per data-sharded bf16
+    gradient (the clip's upcast) and an f32 all-reduce per leaf no rule
+    shards over the data ranks; over the data group, per step, a
+    reduce-scatter per data-sharded leaf and layer, an all-gather per
+    such leaf and layer twice (remat gathers again) or once outside the
+    layers, and the clip's all-reduce."""
+    params = meta_params(cfg)
+    specs = SH.param_specs(params, {"data": 1, "model": 1}, fsdp=True,
+                           cfg=cfg)
+    n = TRAIN_STEPS
+    rs = ag = convert = reduce = 0
+    for (path, p), sp in zip(T.leaves_with_paths(params), specs):
+        if SH.spec_dim(sp, "data") is None:
+            reduce += 1
+            continue
+        layers = p.shape[0] if path.startswith("['groups']") else 1
+        rs += layers
+        ag += 2 * layers if path.startswith("['groups']") else 1
+        convert += p.dtype != torch.float32
+    want = {"bucket_pack": 0, "convert_copy": n * convert, "fused_pack": 0,
+            "fused_unpack": 0}
+    calls = {"all_reduce": n * reduce, "reduce_scatter": 0, "all_gather": 0}
+    data = {"all_gather": n * ag, "reduce_scatter": n * rs, "all_reduce": n}
+    return want, calls, data
+
+
+def _zero3_on_card(dev) -> int:
+    """ZeRO-3 against ``ddp_tp`` on 4-layer deepseek-coder-33b, gated, and
+    the dry run's memory beside the measured peak.  Returns the fsdp
+    run's convert-copy launches."""
+    cfg = dataclasses.replace(get_config(FSDP_ARCH), n_layers=FSDP_DEPTH)
+    leaves = ST.leaves(meta_params(cfg))
+    want, calls, data = _zero3_counts(cfg)
+    strat = TS.GradSyncStrategy.per_tensor(leaves)
+    created = TRAIN.init_process_group(dev)
+    try:
+        runs = {"fsdp_tp": _train_blocks_run(dev, cfg, None, "tp", want,
+                                             calls, "fsdp_tp", data),
+                "ddp_tp": _train_blocks_run(
+                    dev, cfg, strat, "tp",
+                    *implied_counts(strat, leaves, TRAIN_STEPS))}
+        grads = _grads_memory(dev, cfg)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    for mode, r in runs.items():
+        print(f"train {cfg.name} at {cfg.n_layers} layers "
+              f"({r['params'] / 1e9:.2f}B parameters), mode {mode!r} on a "
+              f"(1, 1) mesh: losses {r['losses']}, grad norms {r['norms']}; "
+              f"step {r['step_s'] * 1e3:.1f} ms (median of steps "
+              f"2..{TRAIN_STEPS}, host clock, synced; first "
+              f"{r['first_s'] * 1e3:.1f} ms), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / r['step_s']:.0f} tokens/s, "
+              f"max_memory_allocated {r['peak'] / 2**30:.3f} GiB; launches "
+              f"{r['launches']}; collectives {r['collectives']}; model "
+              f"group's {r['tp_calls']}, data group's {r['data_calls']}")
+    fs, dd = runs["fsdp_tp"], runs["ddp_tp"]
+    gaps = {k: [abs(a - b) / abs(b) for a, b in zip(fs[k], dd[k])]
+            for k in ("losses", "norms")}
+    print(f"train {cfg.name}: relative gaps fsdp_tp against ddp_tp, losses "
+          f"{['%.2e' % g for g in gaps['losses']]}, grad norms "
+          f"{['%.2e' % g for g in gaps['norms']]}; step "
+          f"{fs['step_s'] / dd['step_s']:.4f}x, peak "
+          f"{fs['peak'] / dd['peak']:.4f}x; card {card_line()}")
+    if max(gaps["losses"] + gaps["norms"]) > ZERO3_GAP:
+        raise AssertionError(f"{cfg.name} fsdp_tp against ddp_tp: relative "
+                             f"gaps {gaps} over {ZERO3_GAP}")
+    # the dry runs of the same step and of its forward and backward at
+    # MEM_BATCH rows, on a fake (1, 1) world
+    def tokens(rows):
+        return {"tokens": torch.empty((rows, TRAIN_SEQ), dtype=torch.int64,
+                                      device="meta")}
+
+    with DRY.fake_world(1):
+        mesh = make_mesh({"data": 1, "model": 1}, device="cpu")
+        pred = DRY.dryrun_train(cfg, mesh, FSDP_ARCH,
+                                specs=tokens(TRAIN_BATCH), grad_accum=1)
+        pred_grads = DRY.dryrun_grads(cfg, mesh, FSDP_ARCH,
+                                      specs=tokens(MEM_BATCH), grad_accum=1)
+    mem = pred["memory"]
+    total = mem["argument_bytes"] + mem["temp_bytes"]
+    print(f"memory of the fsdp_tp step (its peak in the update: the "
+          f"parameters, moments and their updates): measured "
+          f"max_memory_allocated {fs['peak'] / 2**30:.3f} GiB against the "
+          f"dry run's argument + temp {total / 2**30:.3f} GiB (argument "
+          f"{mem['argument_bytes'] / 2**30:.3f}, temp "
+          f"{mem['temp_bytes'] / 2**30:.3f}; fake (1, 1) world, "
+          f"{pred['fake_step_s']} s): the dry run is "
+          f"{(total - fs['peak']) / fs['peak'] * 100:+.2f}% off the card; "
+          f"flops {pred['flops']:.6e}")
+    card_args, card_temp = grads
+    print(f"memory of the fsdp_tp forward and backward (step.loss_and_grads"
+          f", before the sync, clip and update; {MEM_BATCH} x {TRAIN_SEQ}; "
+          f"its temp the gradients and activations): measured arguments "
+          f"{card_args / 2**30:.3f} GiB, temp {card_temp / 2**30:.3f} GiB "
+          f"(max_memory_allocated less the bytes live before it) against "
+          f"the dry run's {pred_grads['argument_bytes'] / 2**30:.3f} and "
+          f"{pred_grads['temp_bytes'] / 2**30:.3f} GiB: temp "
+          f"{(pred_grads['temp_bytes'] - card_temp) / card_temp * 100:+.2f}"
+          f"% off the card; card {card_line()}")
+    return fs["launches"]["convert_copy"]
+
+
+def _grads_memory(dev, cfg) -> tuple:
+    """The fsdp_tp step's forward and backward alone
+    (``step.loss_and_grads``, before its sync, clip and update) on
+    ``MEM_BATCH`` x ``TRAIN_SEQ`` tokens on the card: the bytes its
+    arguments take (parameters drawn from seed 0, the batch) and the most
+    it allocates beyond them (``max_memory_allocated`` less what was live
+    before: the gradients and activations)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    step = TS.build_train_step(cfg, mode="fsdp_tp", remat=True,
+                               mesh=make_debug_mesh((1, 1), device="cuda"))
+    params = TPAR.shard_params(
+        ST.init_params(cfg, seed=0, device=dev, draw_on_device=True), step.tp)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (MEM_BATCH, TRAIN_SEQ),
+                                     device=dev, generator=gen)}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = step.loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{cfg.name} loss_and_grads: loss {loss}")
+    del params, batch, loss, grads, step
+    torch.cuda.empty_cache()
+    return base - before, temp
+
+
+def phase_dryrun(dev, art: str, dry: list) -> int:
+    """Phase (z): the pricing CLIs, the full-width dry runs started with
+    the script, and ZeRO-3 on the card; within ``DRYRUN_LIMIT_S``.
+    Returns the convert-copy launches of the fsdp_tp run."""
+    t0 = time.time()
+    _price_cli(art)
+    _dryrun_results(art, dry, t0 + DRYRUN_LIMIT_S)
+    torch.cuda.empty_cache()
+    launches = _zero3_on_card(dev)
+    wall = time.time() - t0
+    print(f"phase (z): {wall:.1f} s (limit {DRYRUN_LIMIT_S} s); the dry "
+          f"runs started {t0 - dry[0][3]:.1f} s before it; card "
+          f"{card_line()}")
+    if wall > DRYRUN_LIMIT_S:
+        raise AssertionError(f"phase (z) took {wall:.1f} s, over "
+                             f"{DRYRUN_LIMIT_S} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    art = tempfile.mkdtemp(prefix="chip_smoke_")
+    dry = start_dryruns(art)
+    try:
+        return run(art, dry)
+    finally:
+        for _, _, proc, _ in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(art, ignore_errors=True)
+
+
+def run(art: str, dry: list) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.time()
@@ -2902,6 +3243,8 @@ def main() -> int:
         res["bucket_pack"], launches["bucket_pack"] = phase_unfused_buckets(
             dev, tmp, strat, leaves)
         err, step_s = phase_search(dev, tmp, leaves)
+        shutil.copy(os.path.join(tmp, "searched.json"),
+                    os.path.join(art, "plan.json"))
         err_gnn = phase_estimator(dev, tmp, leaves, step_s)
         phase_tensor_parallel(tmp, strat, leaves)
         res["bucket_pack"]["max_abs_err"] = max(
@@ -2914,7 +3257,7 @@ def main() -> int:
     served, m, peak = phase_serving(dev, params, cfg, TINYLLAMA)
     flash_layers = phase_layers(dev, params, cfg)
     served_plan = phase_serving_plan(dev, params, cfg,
-                                     {"metrics": m, "peak": peak})
+                                     {"metrics": m, "peak": peak}, art)
     del params
     torch.cuda.empty_cache()
 
@@ -2949,6 +3292,8 @@ def main() -> int:
                              f"{time.time() - t_mm:.1f} s, over "
                              f"{MM_LIMIT_S} s")
     phase_train_blocks(dev)
+    zero3_convert = phase_dryrun(dev, art, dry)
+    launches["convert_copy"] += zero3_convert
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
     if any(served_ds.values()):
         raise AssertionError(f"{DS_ARCH} serving launched {served_ds}")
@@ -2959,6 +3304,9 @@ def main() -> int:
                                    + sum(mm_launches.values()))
     launches["rglru_scan"] = served_rg["rglru_scan"]
     launches["rwkv6_wkv"] = served_rwkv["rwkv6_wkv"]
+    print(f"convert_copy launches: {launches['convert_copy']} "
+          f"({launches['convert_copy'] - zero3_convert} on the training path "
+          f"of (g), {zero3_convert} by the fsdp_tp clip of (z))")
     print(f"launches on the serving paths: flash_attention "
           f"{served['flash_attention']} ({ARCH}) + "
           f"{served_rg['flash_attention']} ({RG_ARCH}) + {flash_layers} "

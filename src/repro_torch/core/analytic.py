@@ -1,6 +1,6 @@
 """Analytic per-device FLOP / HBM-byte / ICI-byte model per (arch x shape)
-(port of ``repro/core/analytic.py``, numpy only; the port's own copy of the
-reference's assigned shapes, ``SHAPES``, rides along, and every default
+(port of ``repro/core/analytic.py``, numpy only; the assigned shapes,
+``SHAPES``, come from :mod:`repro_torch.launch.shapes`, and every default
 ``hw=`` is the H100, which no formula reads).
 
 Why this exists: XLA's ``compiled.cost_analysis()`` counts ``while``-loop
@@ -20,16 +20,9 @@ import dataclasses
 
 import numpy as np
 
+from ..launch.shapes import SHAPES
 from ..models.config import ModelConfig
 from .hw import H100_SXM, Hardware
-
-# The reference's assigned input shapes (``repro/launch/shapes.py``).
-SHAPES = {
-    "train_4k": {"kind": "train", "seq": 4096, "batch": 256},
-    "prefill_32k": {"kind": "prefill", "seq": 32768, "batch": 32},
-    "decode_32k": {"kind": "decode", "seq": 32768, "batch": 128},
-    "long_500k": {"kind": "decode", "seq": 524288, "batch": 1},
-}
 
 
 @dataclasses.dataclass

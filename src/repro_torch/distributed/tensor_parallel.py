@@ -47,13 +47,14 @@ from ..models.config import ModelConfig
 from . import sharding as SH
 
 def check_heads(cfg: ModelConfig, size: int) -> None:
-    """The port computes each attention, WKV or MLA head whole on one rank:
-    a block whose head projections the rules shard over ``size`` ranks
-    needs ``n_heads % size == 0`` (grouped-query attention has its own
-    path for heads that do not divide, as the reference's rules do)."""
-    per_head = cfg.block in ("rwkv", "mla")
-    if per_head and size > 1 and (cfg.n_heads * cfg.hd) % size == 0 \
-            and cfg.n_heads % size:
+    """The port computes each MLA head whole on one rank: an MLA block
+    whose head projections the rules shard over ``size`` ranks needs
+    ``n_heads % size == 0``, which every config meets at the production
+    mesh's model degree 16.  Grouped-query attention has its own path for
+    heads that do not divide, as the reference's rules do, and RWKV-6
+    computes the heads its columns cover (``rwkv_time_mix``)."""
+    if cfg.block == "mla" and size > 1 \
+            and (cfg.n_heads * cfg.hd) % size == 0 and cfg.n_heads % size:
         raise NotImplementedError(
             f"tensor parallelism for {cfg.name}: {cfg.n_heads} "
             f"{cfg.block.upper()} heads do not split over {size} model "
@@ -107,27 +108,51 @@ class TPContext(ModelGroup):
     :meth:`layer` gives decoder layer ``li``'s view, which finds the specs
     of that layer's own group (a DeepSeek-V2 model's dense first layers
     and its MoE layers, a hybrid's ``cycle`` and ``tail`` and each one's
-    ``b{j}`` positions)."""
+    ``b{j}`` positions).
 
-    def __init__(self, cfg: ModelConfig, group=None):
+    With ``data``, the data group, the context is ZeRO-3's (mode
+    ``"fsdp_tp"``): the specs are the rules' ``fsdp=True`` specs on
+    ``mesh_shape`` (the model slice, then the largest free dim over the
+    data ranks; routed experts over the data ranks, each expert's FFN
+    dim over ``model``), ``ddims`` holds each leaf's data-sharded dim, and
+    :meth:`unshard` all-gathers a subtree's data shards where it is used,
+    the gather's backward reduce-scattering the gradient and taking its
+    mean over the data ranks.  ``data_calls`` counts the data group's
+    collectives."""
+
+    def __init__(self, cfg: ModelConfig, group=None, *, data=None,
+                 mesh_shape=None):
         from ..models import stacked as ST
 
         super().__init__(group)
         check_heads(cfg, self.size)
+        self.fsdp = data is not None
+        self.data = data
+        if self.fsdp:
+            self.data_rank = dist.get_rank(data)
+            self.data_size = dist.get_world_size(data)
+            self.data_calls = {"all_gather": 0, "reduce_scatter": 0,
+                               "all_reduce": 0}
         with torch.device("meta"):
             full = ST.init_params(cfg, device="meta")
-        self.specs = SH.param_specs(full, {"model": self.size}, cfg=cfg)
+        shape = dict(mesh_shape) if self.fsdp else {"model": self.size}
+        self.specs = SH.param_specs(full, shape, fsdp=self.fsdp, cfg=cfg)
         self.dims = [SH.spec_dim(s) for s in self.specs]
-        self._by_names = {}
+        self.ddims = [SH.spec_dim(s, "data") for s in self.specs]
+        self._by_names, self._dd_top = {}, {}
         by_group: dict = {}
-        for (path, _), d in zip(T.leaves_with_paths(full), self.dims):
+        for (path, _), d, dd in zip(T.leaves_with_paths(full), self.dims,
+                                    self.ddims):
             names = SH.path_names(path)
             # a layer's view of a stacked leaf drops the layer dim
-            d_layer = None if d is None else d - 1
+            d_layer, dd_layer = (None if e is None else e - 1
+                                 for e in (d, dd))
             if names[0] == "groups":
                 by_group.setdefault(int(names[1]), {})[tuple(names[2:])] = \
-                    d_layer
-            elif names[:2] == ["encoder", "layers"]:
+                    (d_layer, dd_layer)
+                continue
+            self._dd_top[tuple(names)] = dd
+            if names[:2] == ["encoder", "layers"]:
                 self._by_names[("encoder", *names[2:])] = d_layer
             else:
                 self._by_names[tuple(names)] = d
@@ -140,7 +165,10 @@ class TPContext(ModelGroup):
                 per_pos = [{n[1:]: d for n, d in dims.items()
                             if n[0] == f"b{j}"} for j in range(g["cycle"])]
             for _ in range(g["count"]):
-                self._layers += [_LayerView(self, p) for p in per_pos]
+                self._layers += [
+                    _LayerView(self, {n: d for n, (d, _) in p.items()},
+                               {n: dd for n, (_, dd) in p.items()})
+                    for p in per_pos]
 
     def dim(self, *names: str) -> Optional[int]:
         """The model-sharded dim of a top-level leaf (``dim("embed")``) or
@@ -153,16 +181,61 @@ class TPContext(ModelGroup):
         collectives, and ``dim("attn", "wq")`` of that layer's leaves."""
         return self._layers[li]
 
+    def data_local(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of ``t`` along ``dim`` over the data group."""
+        n = t.shape[dim] // self.data_size
+        return t.narrow(dim, self.data_rank * n, n)
+
+    def unshard(self, tree, ddims: Optional[dict] = None):
+        """``tree`` (the top-level leaves but ``groups`` by default, or a
+        layer's subtree with its view's ``ddims``) with every data-sharded
+        leaf all-gathered over the data group; ``groups`` is passed
+        through.  Without ZeRO-3, ``tree`` itself."""
+        if not self.fsdp:
+            return tree
+        ddims = self._dd_top if ddims is None else ddims
+        out = []
+        for path, leaf in T.leaves_with_paths(tree):
+            names = tuple(SH.path_names(path))
+            dd = None if names[0] == "groups" else ddims[names]
+            out.append(leaf if dd is None
+                       else _GatherFromData.apply(leaf, self, dd))
+        return T.unflatten(tree, out)
+
+    def data_all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        out = gather_leaf(t, dim, self.data)
+        self.data_calls["all_gather"] += 1
+        return out
+
+    def data_all_reduce(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t, group=self.data)
+        self.data_calls["all_reduce"] += 1
+
+    def data_mean_scatter(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice along ``dim`` of the mean of ``g`` over the
+        data group, summed in f32 as the bucketed sync sums, in ``g``'s
+        dtype."""
+        gf = g.float().movedim(dim, 0).contiguous()
+        out = gf.new_empty((gf.shape[0] // self.data_size, *gf.shape[1:]))
+        dist.reduce_scatter_tensor(out, gf, group=self.data)
+        self.data_calls["reduce_scatter"] += 1
+        return out.div_(self.data_size).movedim(0, dim).contiguous().to(
+            g.dtype)
+
 
 class _LayerView:
     """One decoder layer's view of a :class:`TPContext`: ``dim`` reads the
-    layer's own leaves; everything else is the context's."""
+    layer's own leaves and :meth:`unshard` gathers them; everything else
+    is the context's."""
 
-    def __init__(self, tp: TPContext, dims: dict):
-        self._tp, self._dims = tp, dims
+    def __init__(self, tp: TPContext, dims: dict, ddims: dict):
+        self._tp, self._dims, self._ddims = tp, dims, ddims
 
     def dim(self, *names: str) -> Optional[int]:
         return self._dims[names]
+
+    def unshard(self, tree):
+        return self._tp.unshard(tree, self._ddims)
 
     def __getattr__(self, name):
         return getattr(self._tp, name)
@@ -193,6 +266,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.data_all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.data_mean_scatter(g, ctx.dim), None, None
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
@@ -206,25 +290,36 @@ class _GatherFromModel(torch.autograd.Function):
 
 def gather_leaf(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The slices of ``t`` along ``dim`` held by the ranks of ``group``,
-    concatenated in rank order."""
-    parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    concatenated in rank order (one ``all_gather_into_tensor``)."""
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],
+                       *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
 
 
 def shard_params(params, tp: TPContext):
-    """This rank's slices of a full parameter tree (fresh tensors)."""
-    return T.unflatten(params, [
-        p if d is None else tp.local(p, d).clone()
-        for p, d in zip(T.leaves(params), tp.dims)])
+    """This rank's slices of a full parameter tree (fresh tensors): the
+    model slice, then under ZeRO-3 the data slice of that."""
+    out = []
+    for p, d, dd in zip(T.leaves(params), tp.dims, tp.ddims):
+        if d is not None:
+            p = tp.local(p, d)
+        if dd is not None:
+            p = tp.data_local(p, dd)
+        out.append(p if d is None and dd is None else p.clone())
+    return T.unflatten(params, out)
 
 
 @torch.no_grad()
 def gather_params(params, tp: TPContext):
     """The full tree of which ``params`` holds this rank's slices; every
-    rank of the group gets it.  Replicated leaves are returned as they
+    rank of the mesh gets it.  Replicated leaves are returned as they
     are."""
-    return T.unflatten(params, [
-        p if d is None else tp.all_gather(p.detach(), d)
-        for p, d in zip(T.leaves(params), tp.dims)])
+    out = []
+    for p, d, dd in zip(T.leaves(params), tp.dims, tp.ddims):
+        p = p.detach()
+        if dd is not None:
+            p = tp.data_all_gather(p, dd)
+        out.append(p if d is None else tp.all_gather(p, d))
+    return T.unflatten(params, out)

@@ -1,7 +1,8 @@
 """DisCo-enacted train step over ``torch.distributed`` (port of
-``repro/distributed/train_step.py``, mode ``ddp_tp`` with ``layout="dp"``
+``repro/distributed/train_step.py``: mode ``ddp_tp`` with ``layout="dp"``
 or ``layout="tp"`` on a ``("data", "model")`` mesh, each with optional
-ZeRO-1 moments).
+ZeRO-1 moments, and mode ``fsdp_tp``, ZeRO-3 under the tensor-parallel
+layout).
 
 Gradient synchronisation is explicit: the leaves are partitioned into the
 buckets of a searched :class:`GradSyncStrategy`, and each bucket is
@@ -273,6 +274,13 @@ def sync_grads(grads: list, strategy: GradSyncStrategy,
     return out
 
 
+def _mean(g: torch.Tensor, dp: int, group) -> torch.Tensor:
+    """The f32 mean of ``g`` over the group (one all-reduce)."""
+    g = g.float()
+    _all_reduce(g, group)
+    return g.div_(dp)
+
+
 # --------------------------------------------------------------- step build
 def _rank_shard(batch: dict, dp: int, rank: int) -> dict:
     """This rank's rows of the global batch (the reference shards the
@@ -304,8 +312,10 @@ def build_train_step(
     zero1: bool = False,
 ) -> Callable:
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``params`` is the parameter tree, updated in place;
-    ``batch`` is the global batch, of which each data rank takes its rows.
+    metrics)``, with ``step.loss_and_grads(params, batch)`` (the step's
+    part before the sync, clip and update) and ``step.tp``.  ``params``
+    is the parameter tree, updated in place; ``batch`` is the global
+    batch, of which each data rank takes its rows.
 
     ``layout="dp"``: every rank of ``group`` (default: the world) is a
     data rank holding the whole tree.  ``layout="tp"``: ``mesh`` (a
@@ -323,22 +333,40 @@ def build_train_step(
     largest free dim that the data group's size divides (the reference's
     ZeRO-1 rule; a moment still whole in ``opt_state`` is sliced on the
     way in) and all-gathers the updated parameter slices over the data
-    group.  ``mode="fsdp_tp"`` (ZeRO-3) is not ported."""
-    if mode == "fsdp_tp":
-        raise NotImplementedError(
-            "mode='fsdp_tp' (ZeRO-3) is not ported yet (ROADMAP A4)")
-    if mode != "ddp_tp" or layout not in ("dp", "tp"):
+    group.
+
+    ``mode="fsdp_tp"`` (ZeRO-3) runs the tensor-parallel layout on
+    ``mesh`` (``layout`` is not read) with every leaf held as this rank's
+    slice under the rules' ``fsdp=True`` specs (``shard_params`` with
+    ``step.tp``): each layer's leaves are all-gathered over the data group
+    inside the block that remat checkpoints, the gather's backward
+    reduce-scatters the gradient and takes its mean over the data ranks,
+    the leaves no rule shards over the data ranks are all-reduced to their
+    mean, the clip's norm counts every element once, and AdamW steps the
+    shards, its moments sharded with them.  As in the reference, no Plan's
+    buckets are enacted in this mode: a ``strategy`` raises
+    ``ValueError``, as does ``zero1``."""
+    fsdp = mode == "fsdp_tp"
+    if mode not in ("ddp_tp", "fsdp_tp") or layout not in ("dp", "tp"):
         raise ValueError(f"mode={mode!r} layout={layout!r}: the port has "
-                         f"mode 'ddp_tp' with layout 'dp' or 'tp'")
+                         f"mode 'ddp_tp' with layout 'dp' or 'tp', and "
+                         f"mode 'fsdp_tp'")
+    if fsdp and (strategy is not None or zero1):
+        raise ValueError("mode='fsdp_tp' enacts no DisCo buckets and shards "
+                         "every moment already: pass no strategy and no "
+                         "zero1")
     opt_init, opt_update = optimizer or adamw(lr, weight_decay=0.01)
     if loss_fn is None:
         from ..models import stacked as ST
         loss_fn = ST.loss_fn
     tp = None
-    if layout == "tp":
+    if layout == "tp" or fsdp:
         if mesh is None:
-            raise ValueError("layout='tp' needs a ('data', 'model') mesh")
-        tp = TP.TPContext(cfg, mesh.model)
+            raise ValueError(f"mode={mode!r} layout={layout!r} needs a "
+                             f"('data', 'model') mesh")
+        tp = (TP.TPContext(cfg, mesh.model, data=mesh.data,
+                           mesh_shape=mesh.shape) if fsdp
+              else TP.TPContext(cfg, mesh.model))
         group = mesh.data
     z1 = None   # ZeRO-1's (update, apply, shard_state), made at step 1
 
@@ -376,17 +404,27 @@ def build_train_step(
         loss.backward()
         return loss.detach(), [p.grad for p in leaves]
 
-    def step(params, opt_state, batch):
-        nonlocal z1
+    def loss_and_grads(params, batch):
+        """This rank's loss and local gradients on its rows of ``batch``:
+        the step before any sync, clip or update."""
         leaves = T.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
         dp, rank = dist.get_world_size(group), dist.get_rank(group)
+        return grads_of(params, leaves, _rank_shard(batch, dp, rank))
+
+    def step(params, opt_state, batch):
+        nonlocal z1
+        leaves = T.leaves(params)
+        dp = dist.get_world_size(group)
         strat = strategy or GradSyncStrategy.per_tensor(params)
-        loss, grads = grads_of(params, leaves,
-                               _rank_shard(batch, dp, rank))
-        grads = sync_grads(grads, strat, group)
+        loss, grads = loss_and_grads(params, batch)
+        if fsdp:
+            grads = [g if dd is not None else _mean(g, dp, group)
+                     for g, dd in zip(grads, tp.ddims)]
+        else:
+            grads = sync_grads(grads, strat, group)
         dist.all_reduce(loss, group=group)
         loss = loss / dp
         grads, gnorm = clip_by_global_norm(grads, clip_norm, tp)
@@ -402,4 +440,5 @@ def build_train_step(
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     step.tp = tp
+    step.loss_and_grads = loss_and_grads
     return step

@@ -614,14 +614,24 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False,
     experts through ``copy``.  The router's gradient has two parts: the
     aux loss's, whole on every rank, and the combine weights', the local
     experts' share only, so the weights (and only they) pass through
-    ``copy``.  The shared experts follow :func:`mlp_fwd`'s rule."""
+    ``copy``.  Where the rules' ZeRO-3 specs lay the experts out instead
+    (all of them on every rank once gathered over the data ranks, each
+    expert's ``w_up``/``w_gate`` sharded on its FFN dim and ``w_down`` on
+    its output dim), every rank runs every expert's slots: the tokens
+    reach the column-sharded projections through ``copy``, the hidden
+    columns are gathered (and passed through ``copy``, since each rank
+    reads them with other ``w_down`` columns), and the output columns are
+    gathered, so the output and the combine weights are whole on every
+    rank.  The shared experts follow :func:`mlp_fwd`'s rule."""
     e = cfg.moe
     B, S, D = x.shape
     G, T = (B, S) if route_rows else (1, B * S)
     k, E = e.top_k, e.n_routed
     C = max(int(np.ceil(e.capacity_factor * k * T / E)), min(8, T * k))
     dev, dt = x.device, x.dtype
-    sharded = tp is not None and tp.dim("moe", "w_up") is not None
+    dim = tp.dim("moe", "w_up") if tp is not None else None
+    sharded = dim == 0                       # experts over the model ranks
+    ffn_sharded = dim is not None and dim != 0
     xt = x.reshape(G, T, D)
     logits = (xt @ p["router"].to(dt)).float()
     probs = torch.softmax(logits, dim=-1)                   # (G, T, E)
@@ -646,7 +656,7 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False,
     keep = (pos_in_e < C).to(dt)
     slot = sorted_e * C + torch.clamp(pos_in_e, max=C - 1)
     tok_sorted = flat_tok[order]                            # (G, n)
-    rows = (tp.copy(xt) if sharded else xt).gather(
+    rows = (tp.copy(xt) if sharded or ffn_sharded else xt).gather(
         1, tok_sorted[..., None].expand(G, n, D))
     buf = torch.zeros((G, E * C, D), dtype=dt, device=dev).scatter_add_(
         1, slot[..., None].expand(G, n, D), rows * keep[..., None])
@@ -667,7 +677,11 @@ def moe_fwd(p: dict, cfg: ModelConfig, x, *, route_rows: bool = False,
         h = _act(cfg, torch.bmm(xe, p["w_gate"].to(dt))) * up
     else:
         h = _act(cfg, up)
+    if ffn_sharded:
+        h = tp.copy(tp.gather(h, -1))
     out_e = torch.bmm(h, p["w_down"].to(dt))
+    if ffn_sharded:
+        out_e = tp.gather(out_e, -1)
     out_e = out_e.reshape(El, G, C, D).transpose(0, 1).reshape(G, El * C, D)
     contrib = out_e.gather(1, slot[..., None].expand(G, n, D)) \
         * w_sorted[..., None]

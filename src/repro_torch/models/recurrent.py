@@ -350,12 +350,18 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
     the final WKV state, from the kernel too, and the last token.
 
     Under a tensor-parallel context ``tp`` (training) whose rules shard the
-    block, this rank computes its ``H / m`` heads: ``w_r``, ``w_k``,
-    ``w_v`` and ``w_g`` are column-sharded over whole heads (their
-    token-shifted inputs through ``copy``); the decay, computed whole from
-    replicated leaves, ``bonus`` and ``ln_x`` are sliced to the local heads
-    after ``copy``; the group norm is per head; ``w_o`` is row-sharded, its
-    partial sums reduced."""
+    block, ``w_r``, ``w_k``, ``w_v`` and ``w_g`` are column-sharded (their
+    token-shifted inputs through ``copy``) and ``w_o`` is row-sharded, its
+    partial sums reduced.  Where this rank's ``D / m`` columns are whole
+    heads, it computes those ``H / m`` heads; the decay, computed whole
+    from replicated leaves, ``bonus`` and ``ln_x`` are sliced to them after
+    ``copy``.  Where the columns split a head (rwkv6-3b's 40 heads over 16
+    ranks), the rank computes the whole heads its columns cover: ``r``,
+    ``k`` and ``v`` are gathered over the group and passed through
+    ``copy`` (each rank reads the gathered columns differently, so every
+    rank's gradient terms must be summed), the scan and the per-head group
+    norm run on the covering heads, and the rank keeps its own columns
+    before ``* g`` and ``w_o``."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd
     sharded = tp is not None and tp.dim("tmix", "w_r") is not None
@@ -367,17 +373,29 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
     w = torch.exp(-torch.exp(p["w0"].float() + dd.float()))
     u = p["bonus"].float()
     ln_x = p["ln_x"]
+    split = sharded and (D // tp.size) % hd != 0
     if sharded:
-        H //= tp.size
         xr, xk, xv, xg = (tp.copy(t) for t in (xr, xk, xv, xg))
+        ln_x = {n: tp.local(tp.copy(t), -1) for n, t in ln_x.items()}
+    r, k, v = (xt @ p[n].to(x.dtype)
+               for xt, n in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
+    g = F.silu(xg @ p["w_g"].to(x.dtype))
+    if split:
+        # this rank's columns [c0, c0 + D/m) and the heads [h0, h1) they
+        # cover; `own` is where its columns start within those heads
+        c0 = tp.rank * (D // tp.size)
+        h0, h1 = c0 // hd, -(-(c0 + D // tp.size) // hd)
+        own = c0 - h0 * hd
+        r, k, v = (tp.copy(tp.gather(t, -1))[..., h0 * hd:h1 * hd]
+                   for t in (r, k, v))
+        w = tp.copy(w)[..., h0 * hd:h1 * hd]
+        u = tp.copy(u)[h0:h1]
+        H = h1 - h0
+    elif sharded:
+        H //= tp.size
         w = tp.local(tp.copy(w), -1)
         u = tp.local(tp.copy(u), 0)
-        ln_x = {n: tp.local(tp.copy(t), -1) for n, t in ln_x.items()}
-    r = (xr @ p["w_r"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (xk @ p["w_k"].to(x.dtype)).reshape(B, S, H, hd)
-    v = (xv @ p["w_v"].to(x.dtype)).reshape(B, S, H, hd)
-    g = F.silu(xg @ p["w_g"].to(x.dtype))
-    w = w.reshape(B, S, H, hd)
+    r, k, v, w = (t.reshape(B, S, H, hd) for t in (r, k, v, w))
 
     if state is not None:
         rt, kt, vt, wt = (a[:, 0].float() for a in (r, k, v, w))
@@ -401,6 +419,8 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
     mu = of.mean(-1, keepdim=True)
     var = of.var(-1, keepdim=True, unbiased=False)
     of = ((of - mu) * torch.rsqrt(var + 1e-5)).reshape(B, -1, H * hd)
+    if split:
+        of = of[..., own:own + D // tp.size]
     out = (of * ln_x["scale"] + ln_x["bias"]).to(x.dtype)
     out = (out * g) @ p["w_o"].to(x.dtype)
     return (tp.reduce(out) if sharded else out), new_state

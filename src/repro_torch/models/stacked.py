@@ -184,13 +184,21 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
     encoder's output, which every decoder layer cross-attends.  With a
     tensor-parallel context ``tp``, ``params`` holds this rank's slices
     (:mod:`repro_torch.distributed.tensor_parallel`) and the hidden states
-    come out whole on every rank of its group."""
+    come out whole on every rank of its group; under ZeRO-3 the leaves
+    outside the layers are gathered over the data ranks here, and each
+    layer's inside the block that ``remat`` checkpoints, so the recompute
+    gathers them again and at most one layer's whole weights are live
+    beyond the shards."""
+    if tp is not None:
+        params = tp.unshard(params)
     x, positions = _embed_positions(params, cfg, tokens, tp, prefix_emb)
     offset = x.shape[1] - tokens.shape[1]
     memory = (encode(params, cfg, enc_frames, tp) if enc_frames is not None
               else None)
 
     def block(p, x, li):
+        if tp is not None:
+            p = tp.layer(li).unshard(p)
         x, aux, _ = M._layer_fwd(p, cfg, x, positions,
                                  use_kernels=use_kernels, li=li,
                                  with_aux=True, tp=tp, memory=memory)

@@ -60,11 +60,25 @@ def clip_by_global_norm(grads: list, max_norm: float, tp=None):
     ``g * scale`` promotes a bf16 gradient.  With a tensor-parallel
     context ``tp`` the gradients are this rank's slices: the squares of
     the model-sharded leaves are summed over its group, and each
-    replicated leaf, equal on every rank, counts once."""
+    replicated leaf, equal on every rank, counts once.  Under ZeRO-3
+    (``tp.fsdp``) the squares are summed over each group a leaf is
+    sharded over, the model group, the data group or both, and an element
+    replicated over a group counts once."""
     g32 = [g if g.dtype == torch.float32 else K.convert_copy(g, torch.float32)
            for g in grads]
     if tp is None:
         gnorm = torch.sqrt(sum(g.square().sum() for g in g32))
+    elif tp.fsdp:
+        # sums of squares sharded over [model and data, data only, model
+        # only, neither]
+        parts = torch.zeros(4, device=g32[0].device)
+        for g, d, dd in zip(g32, tp.dims, tp.ddims):
+            parts[(d is None) + 2 * (dd is None)] += g.square().sum()
+        by_model = parts[0::2].clone()
+        tp.all_reduce(by_model)
+        by_data = torch.stack([by_model[0], parts[1]])
+        tp.data_all_reduce(by_data)
+        gnorm = torch.sqrt(by_data.sum() + by_model[1] + parts[3])
     else:
         sharded = torch.zeros((), device=g32[0].device)
         replicated = torch.zeros((), device=g32[0].device)

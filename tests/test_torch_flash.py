@@ -136,17 +136,31 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
 def _tc_emulation(q, k, v, causal=True, window=None, split=True,
                   mask_value=float(np.finfo(np.float32).min), round_out=True):
     """The tensor-core kernel of ``csrc/flash_attention.cu``
-    (``flash_tc_kernel``) step by step in plain PyTorch: blocks of 128
-    query rows as two warpgroups of 64, key tiles of 128 (64 at hd 256),
-    the tiles the masks hide from every row of a block never visited and a
-    warpgroup skipping those they hide from all its rows; scores in f32
-    times log2(e)/sqrt(hd), masked to ``mask_value`` (the kernel's
+    (``flash_tc_kernel``) in plain PyTorch: blocks of 128 query rows as
+    two warpgroups of 64, key tiles of 128 (64 at hd 256), the tiles the
+    masks hide from every row of a block never visited and a warpgroup
+    skipping those they hide from all its rows; scores in f32 times
+    log2(e)/sqrt(hd), masked to ``mask_value`` (the kernel's
     finfo(f32).min, also m's start) and keys past T to -inf; the online
-    softmax in base 2 with m and l in f32 and l summed from the f32 P; P . V as products of
-    16-bit operands summed in f32, P split into hi = rn(P) and lo =
-    rn(P - hi) (``split``) or rounded once; the output acc / max(l, 1e-30),
-    rows past S dropped, rounded to q's dtype unless ``round_out`` is
-    False."""
+    softmax in base 2 with m and l in f32 and l summed from the f32 P;
+    P . V as products of 16-bit operands summed in f32, P split into hi =
+    rn(P) and lo = rn(P - hi) (``split``) or rounded once; the output acc
+    / max(l, 1e-30), rows past S dropped, rounded to q's dtype unless
+    ``round_out`` is False.  Every warpgroup of every block steps through
+    the key tiles together: at each tile, a warpgroup whose block does not
+    visit it, or that skips it, keeps its m, l and acc.  One thread, as
+    the small products run fastest alone on a shared host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _tc_emulation_rows(q, k, v, causal, window, split,
+                                  mask_value, round_out)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _tc_emulation_rows(q, k, v, causal, window, split, mask_value,
+                       round_out):
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     dt = q.dtype
@@ -157,54 +171,57 @@ def _tc_emulation(q, k, v, causal=True, window=None, split=True,
               for t in (k, v))                               # (B,H,T,hd)
     scale = (torch.tensor(1.4426950408889634, dtype=f32)
              / torch.sqrt(torch.tensor(float(hd), dtype=f32)))
-    out = torch.zeros(B, H, S, hd, dtype=f32)
-    for q0 in range(0, S, BM):
-        q_last = min(q0 + BM, S) - 1
-        k_lo, k_hi = 0, T
+    W = -(-S // 64)                                          # warpgroups
+    rows = torch.arange(W * 64)
+    qt = torch.zeros(B, H, W * 64, hd)
+    qt[:, :, :S] = qf
+    # each warpgroup's first row and its block's visited tiles [j0, j0+nt)
+    r_lo = torch.arange(W) * 64
+    q0 = r_lo // BM * BM
+    q_last = torch.clamp(q0 + BM, max=S) - 1
+    k_hi = torch.clamp(q_last + 1, max=T) if causal else torch.full_like(q0, T)
+    k_lo = (torch.clamp(q0 - window + 1, min=0) if window
+            else torch.zeros_like(q0))
+    j0 = k_lo // BN
+    nt = torch.clamp(-(-k_hi // BN) - j0, min=0)
+    m = torch.full((B, H, W * 64), mask_value)
+    l = torch.zeros(B, H, W * 64)
+    acc = torch.zeros(B, H, W * 64, hd)
+    for j in range(int((j0 + nt).max()) if W else 0):
+        t0 = j * BN
+        visit = (j >= j0) & (j < j0 + nt)
         if causal:
-            k_hi = min(T, q_last + 1)
+            visit &= t0 <= r_lo + 63     # else hidden from every row
         if window:
-            k_lo = max(0, q0 - window + 1)
-        j0 = k_lo // BN
-        nt = max(0, -(-k_hi // BN) - j0)
-        for r_lo in range(q0, min(q0 + BM, S), 64):          # warpgroups
-            rows = torch.arange(r_lo, r_lo + 64)
-            qt = torch.zeros(B, H, 64, hd)
-            qt[:, :, :min(64, S - r_lo)] = qf[:, :, r_lo:r_lo + 64]
-            m = torch.full((B, H, 64), mask_value)
-            l = torch.zeros(B, H, 64)
-            acc = torch.zeros(B, H, 64, hd)
-            for j in range(nt):
-                t0 = (j0 + j) * BN
-                if ((causal and t0 > r_lo + 63)
-                        or (window and t0 + BN - 1 <= r_lo - window)):
-                    continue                     # hidden from every row
-                keys = torch.arange(t0, t0 + BN)
-                kt, vt = torch.zeros(B, H, BN, hd), torch.zeros(B, H, BN, hd)
-                n = max(0, min(BN, T - t0))      # TMA's zero fill past T
-                kt[:, :, :n], vt[:, :, :n] = (kf[:, :, t0:t0 + n],
-                                              vf[:, :, t0:t0 + n])
-                x = (qt @ kt.transpose(-1, -2)) * scale
-                ok = torch.ones(64, BN, dtype=torch.bool)
-                if causal:
-                    ok &= keys[None, :] <= rows[:, None]
-                if window:
-                    ok &= keys[None, :] > rows[:, None] - window
-                x = torch.where(ok, x, torch.tensor(mask_value))
-                x = torch.where(keys >= T, torch.tensor(-np.inf), x)
-                mx = torch.maximum(m, x.amax(-1))
-                corr = torch.exp2(m - mx)
-                p = torch.exp2(x - mx[..., None])
-                l = l * corr + p.sum(-1)
-                hi = p.to(dt).to(f32)
-                pv = hi @ vt
-                if split:
-                    pv = pv + (p - hi).to(dt).to(f32) @ vt
-                acc = acc * corr[..., None] + pv
-                m = mx
-            o = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
-            out[:, :, r_lo:r_lo + 64] = o[:, :, :min(64, S - r_lo)]
-    out = out.permute(0, 2, 1, 3)
+            visit &= t0 + BN - 1 > r_lo - window
+        if not bool(visit.any()):
+            continue
+        live = visit.repeat_interleave(64)
+        keys = torch.arange(t0, t0 + BN)
+        kt, vt = torch.zeros(B, H, BN, hd), torch.zeros(B, H, BN, hd)
+        n = max(0, min(BN, T - t0))      # TMA's zero fill past T
+        kt[:, :, :n], vt[:, :, :n] = (kf[:, :, t0:t0 + n],
+                                      vf[:, :, t0:t0 + n])
+        x = (qt @ kt.transpose(-1, -2)) * scale
+        ok = torch.ones(W * 64, BN, dtype=torch.bool)
+        if causal:
+            ok &= keys[None, :] <= rows[:, None]
+        if window:
+            ok &= keys[None, :] > rows[:, None] - window
+        x = torch.where(ok, x, torch.tensor(mask_value))
+        x = torch.where(keys >= T, torch.tensor(-np.inf), x)
+        mx = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - mx)
+        p = torch.exp2(x - mx[..., None])
+        hi = p.to(dt).to(f32)
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).to(dt).to(f32) @ vt
+        l = torch.where(live, l * corr + p.sum(-1), l)
+        acc = torch.where(live[:, None], acc * corr[..., None] + pv, acc)
+        m = torch.where(live, mx, m)
+    o = acc * (1.0 / torch.clamp(l, min=1e-30))[..., None]
+    out = o[:, :, :S].permute(0, 2, 1, 3)
     return out.to(dt) if round_out else out
 
 

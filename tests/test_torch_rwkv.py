@@ -146,7 +146,18 @@ def _wkv6_chunked_emulation(r, k, v, w, u):
     3. Each chunk rerun step by step from S_c: out_t = r_t^T S + (sum_i
        r_t[i] u[i] k_t[i]) v_t, then S <- w_t S + k_t v_t^T; the last
        chunk's S is the final state.
-    Returns ``(out, final)`` as :func:`repro_torch.kernels.ref.rwkv6_ref`."""
+    Returns ``(out, final)`` as :func:`repro_torch.kernels.ref.rwkv6_ref`.
+    One thread, as the small per-step products run fastest alone on a
+    shared host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _wkv6_chunked_steps(r, k, v, w, u)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _wkv6_chunked_steps(r, k, v, w, u):
     B, S, H, hd = r.shape
     C, seg = _wkv_chunk(hd), 16
     rf, kf, vf, wf = (t.float().permute(0, 2, 1, 3) for t in (r, k, v, w))

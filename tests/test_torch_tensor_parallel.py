@@ -452,8 +452,9 @@ def test_dense_only_and_fsdp_tp_not_ported(four_ranks, arch):
     A5b): ``TPContext`` builds at degree 2 on every reduced config, shards
     the leaves that the rules shard at a model dim of 2, and gives each
     decoder layer a view that finds that layer's own leaves (its group's,
-    without a cycle's ``b{j}``).  ``mode="fsdp_tp"`` (ZeRO-3) still
-    raises, naming A4."""
+    without a cycle's ``b{j}``).  ``mode="fsdp_tp"`` (ZeRO-3) is ported
+    since ROADMAP A4b (``tests/test_torch_fsdp.py``); built without a
+    mesh it raises ``ValueError``."""
     _, _, _, out = four_ranks
     cfg = get_config(arch).reduced()
     with torch.device("meta"):
@@ -464,7 +465,7 @@ def test_dense_only_and_fsdp_tp_not_ported(four_ranks, arch):
     layers = [sorted(SH.path_names(p) for p, _ in T.leaves_with_paths(lp))
               for lp in ST._layers(full, cfg)]
     assert json.loads(str(out[f"ctx_{arch}_layers"])) == layers
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="mesh"):
         TS.build_train_step(cfg, mode="fsdp_tp")
 
 
