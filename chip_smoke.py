@@ -258,6 +258,32 @@ Phases, each of which stops the run with a nonzero exit on failure:
       (``step.loss_and_grads``) at ``MEM_BATCH`` x 2048, whose temp (the
       gradients and activations) is printed beside the dry run's.
     Within ``DRYRUN_LIMIT_S``.
+(aa) serving under the tensor-parallel layout:
+    - at the script's start, beside (z)'s dry runs and likewise on a core
+      of its own at nice 19, ``python -m repro_torch.launch.sweep --arch
+      tinyllama-1.1b,deepseek-v2-lite-16b,rwkv6-3b --shape
+      prefill_32k,decode_32k,long_500k --meshes single`` (each run a
+      subprocess: rank 0 of (16, 16), fake backend and tensors), and a
+      process running the memory points' dry runs on a fake (1, 1) world;
+      the phase prints each sweep run's flops, collectives per op and
+      group size, argument + temp GiB per device, ``best_time_s`` and host
+      seconds (deepseek-v2-lite-16b's ``long_500k`` is not applicable);
+    - on the weights each serving phase holds (tinyllama-1.1b after (s),
+      recurrentgemma-9b after (n), rwkv6-3b after (p),
+      deepseek-v2-lite-16b after (t)'s serving run): the longest prompt's
+      prefill with ``use_kernels=True, tp=`` (a one-rank NCCL (1, 1)
+      mesh) and ``SERVE_TP_STEPS`` decode steps with ``tp=``, against the
+      same calls without ``tp``: logits within the cell's bf16
+      tolerance, greedy tokens and caches equal, flash, RG-LRU and WKV-6
+      launches per prefill equal (the counters zeroed just before each
+      prefill and read just after); prefill and decode ms beside dp's;
+    - two memory points of tinyllama-1.1b on a (1, 1) mesh, each built by
+      the dry run's own builders on the card: a decode step at
+      ``MEM_DECODE_ROWS`` rows over caches of ``MEM_SEQ`` and a
+      kernel-free prefill of ``MEM_PREFILL_ROWS`` x ``MEM_SEQ``; the
+      card's ``max_memory_allocated`` beside the dry run's argument +
+      temp, within ``MEM_POINT_GAP``.
+    Within ``SERVE_TP_LIMIT_S``, the serving checks' seconds counted in.
 Then the total seconds and the card's name and power limit again, a JSON
 line of every kernel's numbers, and the device line last.
 
@@ -396,6 +422,20 @@ ZERO3_GAP = 1e-6
 # the rows of the forward-and-backward memory point, where the gradients
 # and activations, not the update, make the peak
 MEM_BATCH = 4
+# phase (aa): the serving dry runs swept on the host from the script's
+# start (arch x shape on the (16, 16) mesh); the decode steps of the
+# TP-against-dp serving checks; the
+# memory points' rows (a decode step over caches of MEM_SEQ, a kernel-free
+# prefill of MEM_SEQ tokens) and the most relative gap of the card's peak
+# from the dry run's argument + temp; the most seconds the phase may take,
+# its serving checks (run beside each model's serving phase, on the
+# weights it holds) counted in
+SWEEP_ARCHS = ("tinyllama-1.1b", "deepseek-v2-lite-16b", "rwkv6-3b")
+SWEEP_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+SERVE_TP_STEPS = 16
+MEM_DECODE_ROWS, MEM_PREFILL_ROWS, MEM_SEQ = 8, 2, 32768
+MEM_POINT_GAP = 0.05
+SERVE_TP_LIMIT_S = 150.0
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -2466,9 +2506,10 @@ def phase_deepseek_search(cfg) -> None:
           f"{2 * 4 * cfg.param_count() / 1e9:.0f} GB)")
 
 
-def phase_deepseek(dev) -> dict:
-    """Phase (t): full deepseek-v2-lite-16b on the card.  Returns the
-    serving run's launches."""
+def phase_deepseek(dev, tp_checks: list) -> dict:
+    """Phase (t): full deepseek-v2-lite-16b on the card, and its serving
+    check under tp for phase (aa) (appended to ``tp_checks``).  Returns
+    the serving run's launches."""
     cfg = get_config(DS_ARCH)
     t0 = time.time()
     torch.cuda.reset_peak_memory_stats()
@@ -2485,6 +2526,8 @@ def phase_deepseek(dev) -> dict:
     phase_route_rows_reduced(dev, cfg)
     phase_route_rows_full(dev, params, cfg)
     served, _, _ = phase_serving(dev, params, cfg, DEEPSEEK)
+    tp_checks.append(phase_serve_tp_check(dev, params, cfg, DEEPSEEK,
+                                          max(DEEPSEEK.extra_prompts)))
     phase_decode_trace(dev, params, cfg, DEEPSEEK.cache_len)
     phase_deepseek_loss(dev, params, cfg)
     del params
@@ -2955,6 +2998,64 @@ def start_dryruns(out: str) -> list:
     return runs
 
 
+# the memory points' dry runs on a fake (1, 1) world, run beside the card
+# phases in a process of their own (this script imported for the points'
+# inputs)
+_POINTS = r"""
+import json, sys
+import chip_smoke as CS
+points = {shape: CS.DRY.dryrun_one(
+    CS.ARCH, shape, verbose=False, mesh_shape={"data": 1, "model": 1},
+    specs=CS._memory_point_specs(CS.get_config(CS.ARCH), shape))
+    for shape in ("decode_32k", "prefill_32k")}
+json.dump(points, open(sys.argv[1], "w"))
+"""
+
+
+def _memory_point_specs(cfg, shape: str) -> dict:
+    """The inputs of a memory point: meta tensors of the decode step's
+    token, position and caches, or of the prefill's prompts."""
+    def meta(shape_of, dt):
+        return torch.empty(shape_of, dtype=dt, device="meta")
+
+    if shape == "decode_32k":
+        return {"token": meta((MEM_DECODE_ROWS,), torch.int64),
+                "pos": meta((), torch.int64),
+                "caches": ST.init_cache(cfg, MEM_DECODE_ROWS, MEM_SEQ,
+                                        device="meta")}
+    return {"tokens": meta((MEM_PREFILL_ROWS, MEM_SEQ), torch.int64)}
+
+
+def start_serving_dryruns(out: str) -> dict:
+    """Start, beside the training dry runs, the sweep of the serving dry
+    runs (``launch/sweep.py`` over ``SWEEP_ARCHS`` x ``SWEEP_SHAPES`` on
+    the (16, 16) mesh, into ``out/sweep``) and the memory points' dry
+    runs (into ``out/points.json``), each on a core of its own at the
+    lowest priority.  Returns ``{"sweep": (process, start), "points":
+    (process, start)}``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, here]),
+               OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    cmds = {"sweep": [sys.executable, "-m", "repro_torch.launch.sweep",
+                      "--arch", ",".join(SWEEP_ARCHS),
+                      "--shape", ",".join(SWEEP_SHAPES),
+                      "--meshes", "single",
+                      "--out", os.path.join(out, "sweep")],
+            "points": [sys.executable, "-c", _POINTS,
+                       os.path.join(out, "points.json")]}
+    procs = {}
+    for i, (name, cmd) in enumerate(cmds.items()):
+        with open(os.path.join(out, f"{name}.log"), "w") as log:
+            proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                    stderr=subprocess.STDOUT)
+        os.sched_setaffinity(proc.pid,
+                             {cores[-1 - (len(DRYRUNS) + i) % len(cores)]})
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+        procs[name] = (proc, time.time())
+    return procs
+
+
 def _dryrun_results(out: str, runs: list, deadline: float) -> None:
     """Wait for the dry runs (until ``deadline``), check and print each:
     flops, collectives per op and group size, argument + temp bytes per
@@ -3186,6 +3287,229 @@ def _grads_memory(dev, cfg) -> tuple:
     return base - before, temp
 
 
+def _synced_s(fn):
+    """``fn()`` and its seconds on the host clock, the card synced on
+    both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_serve_tp_check(dev, params, cfg, cell: Serving,
+                         prompt: int) -> dict:
+    """Part of phase (aa), run on the full-width weights a serving phase
+    holds: the ``prompt``-token prefill with ``use_kernels=True`` and
+    ``tp=`` (a ``TPContext`` on a one-rank NCCL (1, 1) mesh, where a
+    rank's shards are the whole leaves, so the held weights serve as
+    they are), then ``SERVE_TP_STEPS`` decode steps with ``tp=``, against
+    the same calls without ``tp``: logits within the cell's bf16
+    tolerance, the greedy tokens and the caches equal, and the kernels'
+    launches per prefill equal.  Each prefill runs twice (the first
+    meets the NCCL communicator's set-up); the second is timed.  Returns
+    the TP run's launches, the seconds the check took and the timings."""
+    t_start = time.time()
+    kernels = ("flash_attention", "rglru_scan", "rwkv6_wkv")
+    created = TRAIN.init_process_group(dev)
+    try:
+        mesh = make_debug_mesh((1, 1), device="cuda")
+        tp = TPAR.TPContext(cfg, mesh.model)
+        toks = torch.from_numpy(np.random.default_rng(prompt).integers(
+            0, cfg.vocab, (1, prompt))).to(dev)
+        runs = {}
+        for name, kw in (("dp", {}), ("tp", {"tp": tp})):
+            with torch.no_grad():
+                ST.prefill(params, cfg, toks, cell.cache_len,
+                           use_kernels=True, **kw)
+                K.reset_launches()
+                (logits, caches), pre_s = _synced_s(
+                    lambda: ST.prefill(params, cfg, toks, cell.cache_len,
+                                       use_kernels=True, **kw))
+                launches = {k: getattr(K, k).launches for k in kernels}
+                first, steps, picked = logits, [], []
+                want = runs["dp"]["picked"] if name == "tp" else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(SERVE_TP_STEPS):
+                    nxt = logits.argmax(-1)
+                    picked.append(int(nxt[0]))
+                    feed = (nxt if want is None else
+                            torch.full_like(nxt, want[t]))
+                    logits, caches = ST.decode_step(
+                        params, cfg, caches, feed, prompt + t,
+                        route_rows=True, **kw)
+                    steps.append(logits)
+                torch.cuda.synchronize()
+                dec_s = (time.perf_counter() - t0) / SERVE_TP_STEPS
+            runs[name] = dict(first=first, steps=steps, caches=caches,
+                              picked=picked, launches=launches,
+                              prefill_s=pre_s, decode_s=dec_s)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    dp, tpr = runs["dp"], runs["tp"]
+    d_first = _cache_diff(dp["first"], tpr["first"])
+    d_steps = max(_cache_diff(a, b)
+                  for a, b in zip(dp["steps"], tpr["steps"]))
+    d_cache = _cache_diff(dp["caches"], tpr["caches"])
+    print(f"serving under tp, {cfg.name} (one-rank NCCL (1, 1) mesh, "
+          f"prompt {prompt}, cache {cell.cache_len}, {SERVE_TP_STEPS} "
+          f"decode steps): prefill {tpr['prefill_s'] * 1e3:.2f} ms "
+          f"against dp's {dp['prefill_s'] * 1e3:.2f}; decode "
+          f"{tpr['decode_s'] * 1e3:.2f} ms a step against "
+          f"{dp['decode_s'] * 1e3:.2f} (host clock, synced); max |logit| "
+          f"diff prefill {d_first:.4e}, decode {d_steps:.4e} (tolerance "
+          f"{cell.logit_tol}); caches max |diff| {d_cache:.4e}; greedy "
+          f"tokens equal {tpr['picked'] == dp['picked']}; launches per "
+          f"prefill tp {tpr['launches']}, dp {dp['launches']}; card "
+          f"{card_line()}")
+    if tpr["launches"] != dp["launches"]:
+        raise AssertionError(f"{cfg.name} tp prefill launched "
+                             f"{tpr['launches']}, dp {dp['launches']}")
+    if tpr["picked"] != dp["picked"]:
+        raise AssertionError(f"{cfg.name} tp greedy tokens "
+                             f"{tpr['picked']} != dp's {dp['picked']}")
+    if max(d_first, d_steps) > cell.logit_tol or d_cache != 0.0 or \
+            not bool(torch.isfinite(tpr["first"]).all()):
+        raise AssertionError(f"{cfg.name} tp against dp: logits "
+                             f"{d_first}, {d_steps}; caches {d_cache}")
+    return {"arch": cfg.name, "launches": tpr["launches"],
+            "seconds": time.time() - t_start,
+            "prefill_ms": (tpr["prefill_s"] * 1e3, dp["prefill_s"] * 1e3),
+            "decode_ms": (tpr["decode_s"] * 1e3, dp["decode_s"] * 1e3)}
+
+
+def _sweep_results(art: str, sweep: tuple, deadline: float) -> list:
+    """Wait for the sweep (until ``deadline``) and print each
+    combination: flops, collectives per op and group size, argument +
+    temp GiB per device, ``best_time_s`` and host seconds."""
+    proc, start = sweep
+    proc.wait(timeout=max(deadline - time.time(), 1.0))
+    if proc.returncode != 0:
+        log = open(os.path.join(art, "sweep.log")).read()
+        raise AssertionError(f"sweep exited {proc.returncode}:\n"
+                             f"{log[-3000:]}")
+    rows, last = [], start
+    for arch, shape in ((a, s) for a in SWEEP_ARCHS for s in SWEEP_SHAPES):
+        path = os.path.join(art, "sweep", f"{arch}__{shape}__pod16x16.json")
+        last = max(last, os.path.getmtime(path))
+        with open(path) as f:
+            res = json.load(f)
+        if "error" in res:
+            raise AssertionError(f"sweep {arch} x {shape}: {res['error']}")
+        if not res["applicable"]:
+            print(f"sweep {arch} x {shape} x pod16x16: not applicable "
+                  f"({res['reason']}); host {res['host_s']} s")
+            continue
+        coll, mem = res["collectives"], res["memory"]
+        per_op = {op: {g: b["count"] for g, b in d["by_group"].items()}
+                  for op, d in coll["per_op"].items()}
+        gib = (mem["argument_bytes"] + mem["temp_bytes"]) / 2**30
+        print(f"sweep {arch} x {shape} x {res['mesh']} (rank 0 of 256, "
+              f"{res['kind']}, mode {res['mode']}): flops "
+              f"{res['flops']:.6e}; collectives by op and group size "
+              f"{per_op}; argument + temp {gib:.3f} GiB per device "
+              f"(argument {mem['argument_bytes'] / 2**30:.3f}, temp "
+              f"{mem['temp_bytes'] / 2**30:.3f}, donated cache "
+              f"{mem['alias_bytes'] / 2**30:.3f}); best_time_s "
+              f"{res['cluster']['best_time_s']:.6e} "
+              f"({res['cluster']['best_algo']}); host {res['host_s']} s "
+              f"(fake step {res['fake_step_s']} s)")
+        if not (res["flops"] > 0 and gib > 0 and coll["per_op"]):
+            raise AssertionError(f"sweep {arch} x {shape}: {res}")
+        rows.append(res)
+    print(f"sweep: {len(rows)} runs, the last result written "
+          f"{last - start:.1f} s after the sweep started, read "
+          f"{time.time() - start:.1f} s after")
+    return rows
+
+
+def _memory_points(dev, art: str, points: tuple, deadline: float) -> None:
+    """tinyllama-1.1b's decode step at ``MEM_DECODE_ROWS`` rows over
+    caches of ``MEM_SEQ`` and its kernel-free prefill of
+    ``MEM_PREFILL_ROWS`` x ``MEM_SEQ``, each built by the dry run's own
+    builders on the card on a one-rank NCCL (1, 1) mesh: the card's
+    arguments and ``max_memory_allocated`` beside the dry run's argument
+    + temp on a fake (1, 1) world, gated at ``MEM_POINT_GAP``."""
+    proc, _ = points
+    proc.wait(timeout=max(deadline - time.time(), 1.0))
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"memory points' dry runs exited {proc.returncode}:\n"
+            f"{open(os.path.join(art, 'points.log')).read()[-3000:]}")
+    with open(os.path.join(art, "points.json")) as f:
+        pred = json.load(f)
+    cfg = get_config(ARCH)
+    created = TRAIN.init_process_group(dev)
+    try:
+        mesh = make_debug_mesh((1, 1), device="cuda")
+        for shape in ("decode_32k", "prefill_32k"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            step, args, _ = DRY.build_dryrun_serve(
+                cfg, mesh, ARCH, shape, device=dev,
+                specs=_memory_point_specs(cfg, shape))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, secs = _synced_s(lambda: step(*args))
+            peak = torch.cuda.max_memory_allocated()
+            logits = out[0]
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"memory point {shape}: logits not "
+                                     f"finite")
+            del step, args, out, logits
+            torch.cuda.empty_cache()
+            m = pred[shape]["memory"]
+            want = m["argument_bytes"] + m["temp_bytes"]
+            got = peak - before
+            gap = (want - got) / got
+            what = (f"decode step, {MEM_DECODE_ROWS} rows over caches of "
+                    f"{MEM_SEQ}" if shape == "decode_32k" else
+                    f"kernel-free prefill, {MEM_PREFILL_ROWS} x {MEM_SEQ}")
+            print(f"memory point, {ARCH} {what} (one-rank NCCL (1, 1) "
+                  f"mesh, {secs * 1e3:.1f} ms): card arguments "
+                  f"{(base - before) / 2**30:.3f} GiB, arguments + "
+                  f"max_memory_allocated beyond them "
+                  f"{got / 2**30:.3f} GiB (temp "
+                  f"{(peak - base) / 2**30:.3f}); the dry run's argument + "
+                  f"temp {want / 2**30:.3f} GiB (argument "
+                  f"{m['argument_bytes'] / 2**30:.3f}, temp "
+                  f"{m['temp_bytes'] / 2**30:.3f}; fake (1, 1) world, "
+                  f"{pred[shape]['fake_step_s']} s): {gap * 100:+.2f}% off "
+                  f"the card; card {card_line()}")
+            if abs(gap) > MEM_POINT_GAP:
+                raise AssertionError(f"memory point {shape}: the dry run "
+                                     f"is {gap * 100:+.2f}% off the card")
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def phase_serve_tp(dev, art: str, bg: dict, checks: list) -> None:
+    """Phase (aa): the serving sweep's dry runs read and printed, the two
+    memory points on the card, and the TP-against-dp serving checks (run
+    earlier on each serving phase's weights) summed; within
+    ``SERVE_TP_LIMIT_S`` with the checks' seconds."""
+    t0 = time.time()
+    _sweep_results(art, bg["sweep"], t0 + SERVE_TP_LIMIT_S / 2)
+    torch.cuda.empty_cache()
+    _memory_points(dev, art, bg["points"], t0 + SERVE_TP_LIMIT_S / 2)
+    checked = sum(c["seconds"] for c in checks)
+    wall = time.time() - t0 + checked
+    print(f"phase (aa): {wall:.1f} s (limit {SERVE_TP_LIMIT_S} s), of it "
+          f"{checked:.1f} s in the serving checks under tp of "
+          f"{[c['arch'] for c in checks]}; launches of their tp prefills "
+          f"{[c['launches'] for c in checks]}; card {card_line()}")
+    if len(checks) != 4:
+        raise AssertionError(f"phase (aa): {len(checks)} serving checks")
+    if wall > SERVE_TP_LIMIT_S:
+        raise AssertionError(f"phase (aa) took {wall:.1f} s, over "
+                             f"{SERVE_TP_LIMIT_S} s")
+
+
 def phase_dryrun(dev, art: str, dry: list) -> int:
     """Phase (z): the pricing CLIs, the full-width dry runs started with
     the script, and ZeRO-3 on the card; within ``DRYRUN_LIMIT_S``.
@@ -3211,17 +3535,18 @@ def main() -> int:
         return 2
     art = tempfile.mkdtemp(prefix="chip_smoke_")
     dry = start_dryruns(art)
+    bg = start_serving_dryruns(art)
     try:
-        return run(art, dry)
+        return run(art, dry, bg)
     finally:
-        for _, _, proc, _ in dry:
+        for proc in [r[2] for r in dry] + [p for p, _ in bg.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(art, ignore_errors=True)
 
 
-def run(art: str, dry: list) -> int:
+def run(art: str, dry: list, bg: dict) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.time()
@@ -3258,6 +3583,8 @@ def run(art: str, dry: list) -> int:
     flash_layers = phase_layers(dev, params, cfg)
     served_plan = phase_serving_plan(dev, params, cfg,
                                      {"metrics": m, "peak": peak}, art)
+    tp_checks = [phase_serve_tp_check(dev, params, cfg, TINYLLAMA,
+                                      max(TINYLLAMA.extra_prompts))]
     del params
     torch.cuda.empty_cache()
 
@@ -3275,9 +3602,11 @@ def run(art: str, dry: list) -> int:
               f"card in {time.time() - t1:.1f} s")
         phase_serving_checks(dev, params, cfg, cell)
         served_by[cell.arch], _, _ = phase_serving(dev, params, cfg, cell)
+        tp_checks.append(phase_serve_tp_check(dev, params, cfg, cell,
+                                              max(cell.extra_prompts)))
         del params
         torch.cuda.empty_cache()
-    served_ds = phase_deepseek(dev)
+    served_ds = phase_deepseek(dev, tp_checks)
     phase_int8(dev)
     t_mm = time.time()
     mm_launches = {}
@@ -3294,6 +3623,9 @@ def run(art: str, dry: list) -> int:
     phase_train_blocks(dev)
     zero3_convert = phase_dryrun(dev, art, dry)
     launches["convert_copy"] += zero3_convert
+    phase_serve_tp(dev, art, bg, tp_checks)
+    tp_launches = {k: sum(c["launches"][k] for c in tp_checks)
+                   for k in ("flash_attention", "rglru_scan", "rwkv6_wkv")}
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
     if any(served_ds.values()):
         raise AssertionError(f"{DS_ARCH} serving launched {served_ds}")
@@ -3301,9 +3633,12 @@ def run(art: str, dry: list) -> int:
                                    + served_rg["flash_attention"]
                                    + flash_layers
                                    + served_plan["flash_attention"]
-                                   + sum(mm_launches.values()))
-    launches["rglru_scan"] = served_rg["rglru_scan"]
-    launches["rwkv6_wkv"] = served_rwkv["rwkv6_wkv"]
+                                   + sum(mm_launches.values())
+                                   + tp_launches["flash_attention"])
+    launches["rglru_scan"] = (served_rg["rglru_scan"]
+                              + tp_launches["rglru_scan"])
+    launches["rwkv6_wkv"] = (served_rwkv["rwkv6_wkv"]
+                             + tp_launches["rwkv6_wkv"])
     print(f"convert_copy launches: {launches['convert_copy']} "
           f"({launches['convert_copy'] - zero3_convert} on the training path "
           f"of (g), {zero3_convert} by the fsdp_tp clip of (z))")
@@ -3312,10 +3647,13 @@ def run(art: str, dry: list) -> int:
           f"{served_rg['flash_attention']} ({RG_ARCH}) + {flash_layers} "
           f"(per-layer prefill) + {served_plan['flash_attention']} "
           f"({ARCH}, serving plan) + {mm_launches[VLM_ARCH]} ({VLM_ARCH} "
-          f"prefill) + {mm_launches[ENCDEC_ARCH]} ({ENCDEC_ARCH} prefill), "
+          f"prefill) + {mm_launches[ENCDEC_ARCH]} ({ENCDEC_ARCH} prefill) "
+          f"+ {tp_launches['flash_attention']} (tp prefills, (aa)), "
           f"rglru_scan "
-          f"{served_rg['rglru_scan']} ({RG_ARCH}), rwkv6_wkv "
-          f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH})")
+          f"{served_rg['rglru_scan']} ({RG_ARCH}) + "
+          f"{tp_launches['rglru_scan']} (aa), rwkv6_wkv "
+          f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH}) + "
+          f"{tp_launches['rwkv6_wkv']} (aa)")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": res[name]["max_abs_err"],

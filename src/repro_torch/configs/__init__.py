@@ -107,6 +107,11 @@ ARCHS = tuple(_CONFIGS)
 
 
 def get_config(name: str) -> ModelConfig:
+    """The config of ``name``: an arch of the registry, or the name of one's
+    reduced variant (``"tinyllama-1.1b-reduced"``, as ``reduced()`` names
+    it), so that a CLI taking arch names takes reduced models too."""
+    if name not in _CONFIGS and name.endswith("-reduced"):
+        return get_config(name[:-len("-reduced")]).reduced()
     if name not in _CONFIGS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_CONFIGS)}")
     return _CONFIGS[name]

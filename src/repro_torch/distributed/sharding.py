@@ -18,7 +18,10 @@ mesh shape:
 * norms, biases, routers and low-rank down projections are replicated;
 * ``fsdp=True`` further shards the largest free dim over the data dims
   (ZeRO-3), and :func:`zero1_spec` does the same for an optimizer moment
-  (ZeRO-1).
+  (ZeRO-1);
+* a decode cache (:func:`cache_specs`) shards its batch over the data dims
+  and its KV heads (else ``head_dim``), MLA latent, RWKV heads and
+  recurrent widths over ``model`` where they divide.
 
 Where the reference reads the data dims' size from a module-level cache
 that ``param_shardings`` fills, these functions take it as ``dp_size``.
@@ -170,6 +173,53 @@ def batch_pspec(batch_dim_size: int, mesh_shape: Mapping[str, int],
     if axes and batch_dim_size % dp_size_of(mesh_shape) == 0:
         return (_dp_entry(axes), *([None] * (ndim - 1)))
     return (None,) * ndim
+
+
+def cache_spec(path: str, shape, mesh_shape: Mapping[str, int],
+               stacked: bool = True) -> Spec:
+    """The spec of the decode-cache leaf at ``path`` with ``shape`` (the
+    reference's ``cache_shardings`` rule): the batch dim (1 in the stacked
+    layout, behind the layer dim, else 0) over the data dims by
+    :func:`batch_pspec`; ``k``, ``v``, ``k_scale`` and ``v_scale`` over
+    ``model`` on their KV-head dim where it divides, else ``k`` and ``v``
+    on ``head_dim``; MLA's ``c_kv`` and ``k_rope`` on their last dim;
+    RWKV's ``wkv`` on its heads; the RG-LRU's ``h`` and ``conv`` and
+    RWKV's ``prev`` on their width."""
+    names = path_names(path)
+    name = names[-1] if names else ""
+    shape = tuple(shape)
+    model_size = mesh_shape.get("model", 1)
+    nd = len(shape)
+    spec: list = [None] * nd
+    b_ax = 1 if stacked else 0
+    if nd > b_ax:
+        spec[b_ax] = batch_pspec(shape[b_ax], mesh_shape, 1)[0]
+    if name in ("k", "v", "k_scale", "v_scale"):
+        kv_ax = b_ax + 2
+        if nd > kv_ax and shape[kv_ax] % model_size == 0:
+            spec[kv_ax] = "model"
+        elif (name in ("k", "v") and nd > kv_ax + 1
+              and shape[-1] % model_size == 0):
+            # few KV heads: shard head_dim instead
+            spec[-1] = "model"
+    elif name in ("c_kv", "k_rope") and shape[-1] % model_size == 0:
+        spec[-1] = "model"
+    elif name == "wkv":
+        h_ax = b_ax + 1
+        if nd > h_ax and shape[h_ax] % model_size == 0:
+            spec[h_ax] = "model"
+    elif name in ("h", "conv", "prev") and shape[-1] % model_size == 0:
+        spec[-1] = "model"
+    return tuple(spec)
+
+
+def cache_specs(caches, mesh_shape: Mapping[str, int],
+                stacked: bool = True) -> list:
+    """Each decode-cache leaf's spec (:func:`cache_spec`), in leaf order:
+    ``stacked`` for the stacked model's caches (a leading layer dim), else
+    one layer's or the per-layer model's."""
+    return [cache_spec(path, leaf.shape, mesh_shape, stacked)
+            for path, leaf in T.leaves_with_paths(caches)]
 
 
 def zero1_spec(shape, spec: Spec, mesh_shape: Mapping[str, int]) -> Spec:

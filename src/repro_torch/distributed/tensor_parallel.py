@@ -8,7 +8,9 @@ parameter tree by the reference's rules
 attention, the FFN, MLA, the routed experts (sharded by expert: expert
 parallelism), the RG-LRU block and RWKV-6's time and channel mix.
 :func:`shard_params` takes a full tree to this rank's local slices and
-:func:`gather_params` takes them back.
+:func:`gather_params` takes them back; :func:`shard_caches` and
+:func:`gather_caches` do the same for a model's decode caches, by the
+rules' ``cache_specs`` on the model group.
 
 The model code computes on local slices and calls the group's conjugate
 collectives, each an autograd function:
@@ -118,10 +120,13 @@ class TPContext(ModelGroup):
     :meth:`unshard` all-gathers a subtree's data shards where it is used,
     the gather's backward reduce-scattering the gradient and taking its
     mean over the data ranks.  ``data_calls`` counts the data group's
-    collectives."""
+    collectives.  ``cache_dims`` holds each leaf's model-sharded dim of
+    the stacked decode caches by the rules' ``cache_specs`` on the model
+    group (the rows are the caller's)."""
 
     def __init__(self, cfg: ModelConfig, group=None, *, data=None,
                  mesh_shape=None):
+        from ..models import model as M
         from ..models import stacked as ST
 
         super().__init__(group)
@@ -135,6 +140,17 @@ class TPContext(ModelGroup):
                                "all_reduce": 0}
         with torch.device("meta"):
             full = ST.init_params(cfg, device="meta")
+        # a cache's specs on the model group alone: its rows are the
+        # caller's, as a batch's are
+        model_only = {"model": self.size}
+        self.cache_dims = [SH.spec_dim(s) for s in SH.cache_specs(
+            ST.init_cache(cfg, 1, 1, device="meta"), model_only)]
+        cache_layers = [
+            {tuple(SH.path_names(path)): SH.spec_dim(sp)
+             for (path, _), sp in zip(T.leaves_with_paths(c),
+                                      SH.cache_specs(c, model_only,
+                                                     stacked=False))}
+            for c in M.init_cache(cfg, 1, 1, device="meta")]
         shape = dict(mesh_shape) if self.fsdp else {"model": self.size}
         self.specs = SH.param_specs(full, shape, fsdp=self.fsdp, cfg=cfg)
         self.dims = [SH.spec_dim(s) for s in self.specs]
@@ -167,8 +183,9 @@ class TPContext(ModelGroup):
             for _ in range(g["count"]):
                 self._layers += [
                     _LayerView(self, {n: d for n, (d, _) in p.items()},
-                               {n: dd for n, (_, dd) in p.items()})
-                    for p in per_pos]
+                               {n: dd for n, (_, dd) in p.items()},
+                               cache_layers[len(self._layers) + j])
+                    for j, p in enumerate(per_pos)]
 
     def dim(self, *names: str) -> Optional[int]:
         """The model-sharded dim of a top-level leaf (``dim("embed")``) or
@@ -225,14 +242,21 @@ class TPContext(ModelGroup):
 
 class _LayerView:
     """One decoder layer's view of a :class:`TPContext`: ``dim`` reads the
-    layer's own leaves and :meth:`unshard` gathers them; everything else
-    is the context's."""
+    layer's own leaves, ``cache_dim`` its cache's and :meth:`unshard`
+    gathers its leaves; everything else is the context's."""
 
-    def __init__(self, tp: TPContext, dims: dict, ddims: dict):
+    def __init__(self, tp: TPContext, dims: dict, ddims: dict, cdims: dict):
         self._tp, self._dims, self._ddims = tp, dims, ddims
+        self._cdims = cdims
 
     def dim(self, *names: str) -> Optional[int]:
         return self._dims[names]
+
+    def cache_dim(self, *names: str) -> Optional[int]:
+        """The model-sharded dim of the layer's cache leaf ``names``
+        (``cache_dim("k")``, ``cache_dim("tmix", "prev")``; batch first,
+        no layer dim), or None."""
+        return self._cdims[names]
 
     def unshard(self, tree):
         return self._tp.unshard(tree, self._ddims)
@@ -309,6 +333,25 @@ def shard_params(params, tp: TPContext):
             p = tp.data_local(p, dd)
         out.append(p if d is None and dd is None else p.clone())
     return T.unflatten(params, out)
+
+
+def shard_caches(caches, tp: TPContext):
+    """This rank's shards (fresh tensors) of whole stacked decode caches
+    (``stacked.init_cache``'s layout) over the model group, by the rules'
+    ``cache_specs``; the rows stay the caller's."""
+    return T.unflatten(caches, [
+        c if d is None else tp.local(c, d).clone()
+        for c, d in zip(T.leaves(caches), tp.cache_dims)])
+
+
+@torch.no_grad()
+def gather_caches(caches, tp: TPContext):
+    """The whole stacked caches of which ``caches`` holds this rank's
+    shards, as fresh tensors (a decode step writes the shards in place);
+    every rank of the model group gets them."""
+    return T.unflatten(caches, [
+        c.clone() if d is None else tp.all_gather(c, d)
+        for c, d in zip(T.leaves(caches), tp.cache_dims)])
 
 
 @torch.no_grad()

@@ -1,8 +1,10 @@
-"""Dry run: one rank's training step on the production mesh, on fake
-tensors, and the pricing of its collectives and of saved Plans (port of
-``repro/launch/dryrun.py``).
+"""Dry run: one rank's training, prefill or decode step on the production
+mesh, on fake tensors, and the pricing of its collectives and of saved
+Plans (port of ``repro/launch/dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.dryrun \
+        --arch tinyllama-1.1b --shape decode_32k
     PYTHONPATH=src python -m repro_torch.launch.dryrun \
         --arch deepseek-coder-33b --shape train_4k --multi-pod
     PYTHONPATH=src python -m repro_torch.launch.dryrun --plan plan.json
@@ -15,12 +17,13 @@ and cluster fingerprint), and ``--serve-plan <file>`` a saved
 step.  A ``--cluster`` override whose fingerprint differs from the
 artifact's prints every differing field and exits 1.
 
-Otherwise each (arch, shape, mesh) runs one whole training step of one
-rank of the 256- or 512-rank world in this process: torch's ``fake``
-process-group backend stands in for the other ranks, and the step runs
-under ``FakeTensorMode``, so no tensor holds memory.  The reference
-compiles the step and reads the compiled HLO; the port counts what the
-step issues:
+Otherwise each (arch, shape, mesh) runs one whole step of one rank of the
+256- or 512-rank world in this process -- a training step, a prefill of
+the shape's prompts or one decode step over its caches: torch's
+``fake`` process-group backend stands in for the other ranks, and the
+step runs under ``FakeTensorMode``, so no tensor holds memory.  The
+reference compiles the step and reads the compiled HLO; the port counts
+what the step issues:
 
 * ``collectives``: every collective the step issues, per op (count,
   result bytes, ring traffic) and by group size, as the reference's
@@ -32,16 +35,23 @@ step issues:
   excluded (an unfused upper bound); ``transcendentals``: the elements of
   each exp, log, tanh, sigmoid, sqrt and rsqrt output;
 * ``memory``: ``argument_bytes`` and ``alias_bytes`` exact (this rank's
-  parameters, moments and batch rows; the donated parameters and
-  moments), ``temp_bytes`` the peak live bytes of the storages the step
-  creates, with the softmax kernels' own temporaries
-  (:func:`kernel_temp_bytes`).
+  parameters, moments and batch rows, the donated parameters and moments;
+  serving: its parameter shard and rows, and for decode its cache shard
+  and token, the cache donated), ``output_bytes`` what the step returns,
+  ``temp_bytes`` the peak live bytes of the storages the step creates,
+  with the softmax kernels' own temporaries (:func:`kernel_temp_bytes`).
+
+The serving steps follow the reference's choices: prefill's parameters
+are sharded over ``model`` only and each data rank routes its own
+prompts; decode shards them ZeRO-3 style where ``fsdp`` (an MoE arch of
+``FSDP_ARCHS``); the rows are split by ``batch_pspec``, so ``long_500k``'s
+single row is served by every data rank; prefill takes the kernel-free
+path (query-chunked attention for long prompts).
 
 One JSON per combination goes under ``--out`` with a ``cluster`` block
 pricing the collectives on ``cluster_from_mesh(mesh)`` or ``--cluster``.
-Only training shapes run: prefill and decode need tensor parallelism on
-the serving paths first (ROADMAP A4d).  Every chip the pricing assumes
-defaults to ``H100_SXM``; ``hw=TPU_V5E`` gives the reference's numbers.
+Every chip the pricing assumes defaults to ``H100_SXM``; ``hw=TPU_V5E``
+gives the reference's numbers.
 """
 from __future__ import annotations
 
@@ -65,7 +75,7 @@ from ..cluster import (COLLECTIVE_ALGOS, best_algo, bucket_time, comm_time,
 from ..core.hw import H100_SXM
 from ..core.pipeline import PipelineSchedule, SCHED_1F1B, SCHEDULES
 from .shapes import (FSDP_ARCHS, GRAD_ACCUM, SHAPES, ZERO1_ARCHS,
-                     applicability, input_specs)
+                     applicability, cache_capacity, input_specs)
 
 
 # ------------------------------------------------------------ collectives
@@ -319,6 +329,162 @@ def dryrun_train(cfg, mesh, arch: str, *, specs=None,
         "collectives": count.coll,
         "grad_accum": info["grad_accum"],
         "mode": info["mode"],
+    }
+
+
+def _local_rows(n: int, mesh) -> int:
+    """This data rank's rows of a global batch of ``n``: split over the
+    data dims by ``batch_pspec`` where they divide it, else all of
+    them."""
+    from ..distributed import sharding as SH
+
+    if SH.batch_pspec(n, mesh.shape, 1)[0] is None:
+        return n
+    return n // SH.dp_size_of(mesh.shape)
+
+
+def _local_batch(specs: dict, mesh, device) -> dict:
+    """Zero tensors of this data rank's rows of each spec in ``specs``."""
+    return {k: torch.zeros((_local_rows(v.shape[0], mesh), *v.shape[1:]),
+                           dtype=v.dtype, device=device)
+            for k, v in specs.items()}
+
+
+def _serving_params(cfg, tp, device):
+    """This rank's shards of ``cfg``'s parameters: drawn on a card there,
+    on the host (or, under ``FakeTensorMode``, nowhere) otherwise."""
+    from ..distributed import tensor_parallel as TP
+    from ..models import stacked as ST
+
+    on_card = torch.device(device).type == "cuda"
+    return TP.shard_params(ST.init_params(cfg, device=device,
+                                          draw_on_device=on_card), tp)
+
+
+def build_dryrun_prefill(cfg, mesh, shape: str, *, specs=None,
+                         device="cpu"):
+    """One rank's prefill of ``shape`` for ``cfg`` on ``mesh``, built on
+    fake tensors (call it under ``FakeTensorMode``; ``device`` builds it
+    on real ones there instead): the parameters sharded over ``model``
+    only (a ``TPContext`` on the model group), this data rank's rows of
+    the prompts (``specs``, default ``input_specs(cfg, shape)``), caches
+    of ``cache_capacity`` for the prompt length, the kernel-free path.
+    Returns ``(step, (params, batch), info)``, ``info`` holding the
+    argument bytes."""
+    from .. import tree as T
+    from ..distributed import tensor_parallel as TP
+    from ..models import stacked as ST
+
+    specs = specs if specs is not None else input_specs(cfg, shape)
+    cap = cache_capacity(cfg, specs["tokens"].shape[1])
+    tp = TP.TPContext(cfg, mesh.model)
+    params = _serving_params(cfg, tp, device)
+    batch = _local_batch(specs, mesh, device)
+
+    @torch.no_grad()
+    def step(params, batch):
+        return ST.prefill(params, cfg, batch["tokens"], cap,
+                          prefix_emb=batch.get("prefix_emb"),
+                          enc_frames=batch.get("enc_frames"), tp=tp)
+
+    p_bytes = sum(_nbytes(p) for p in T.leaves(params))
+    b_bytes = sum(_nbytes(v) for v in batch.values())
+    return step, (params, batch), {"argument_bytes": p_bytes + b_bytes,
+                                   "alias_bytes": 0}
+
+
+def build_dryrun_decode(cfg, mesh, shape: str, *, fsdp: bool = False,
+                        specs=None, device="cpu"):
+    """One rank's decode step of ``shape`` for ``cfg`` on ``mesh``, built
+    on fake tensors (call it under ``FakeTensorMode``; ``device`` as in
+    :func:`build_dryrun_prefill`): the parameters
+    sharded over ``model``, and with ``fsdp`` also over the data ranks
+    (ZeRO-3's layout, each layer gathered where it runs); this data
+    rank's rows of the caches (``specs``, default ``input_specs(cfg,
+    shape)``), each leaf this rank's shard by the rules' ``cache_specs``,
+    of the token and of the encoder's ``memory``; the position a scalar.
+    Returns ``(step, args, info)``, ``info`` holding the argument bytes
+    and the cache's, which the step writes in place (donated)."""
+    from .. import tree as T
+    from ..distributed import tensor_parallel as TP
+    from ..models import stacked as ST
+
+    specs = specs if specs is not None else input_specs(cfg, shape)
+    tp = (TP.TPContext(cfg, mesh.model, data=mesh.data,
+                       mesh_shape=mesh.shape) if fsdp
+          else TP.TPContext(cfg, mesh.model))
+    params = _serving_params(cfg, tp, device)
+    rows = _local_rows(specs["token"].shape[0], mesh)
+    local = []
+    for leaf, d in zip(T.leaves(specs["caches"]), tp.cache_dims):
+        shape_of = [leaf.shape[0], rows, *leaf.shape[2:]]
+        if d is not None:
+            shape_of[d] //= tp.size
+        local.append(torch.zeros(shape_of, dtype=leaf.dtype, device=device))
+    caches = T.unflatten(specs["caches"], local)
+    rest = _local_batch({k: v for k, v in specs.items()
+                         if k in ("token", "memory")}, mesh, device)
+    pos = torch.zeros((), dtype=specs["pos"].dtype, device=device)
+
+    @torch.no_grad()
+    def step(params, caches, token, pos, memory=None):
+        return ST.decode_step(params, cfg, caches, token, pos,
+                              memory=memory, tp=tp)
+
+    args = (params, caches, rest["token"], pos)
+    if "memory" in rest:
+        args += (rest["memory"],)
+    c_bytes = sum(_nbytes(c) for c in local)
+    a_bytes = (sum(_nbytes(p) for p in T.leaves(params)) + c_bytes
+               + sum(_nbytes(v) for v in rest.values()) + _nbytes(pos))
+    return step, args, {"argument_bytes": a_bytes, "alias_bytes": c_bytes}
+
+
+def build_dryrun_serve(cfg, mesh, arch: str, shape: str, *, specs=None,
+                       device="cpu"):
+    """:func:`build_dryrun_prefill` or :func:`build_dryrun_decode` by the
+    kind of ``shape``; decode is ZeRO-3 for an MoE arch of
+    ``FSDP_ARCHS``, as the reference's."""
+    if SHAPES[shape]["kind"] == "prefill":
+        return build_dryrun_prefill(cfg, mesh, shape, specs=specs,
+                                    device=device)
+    return build_dryrun_decode(
+        cfg, mesh, shape, specs=specs, device=device,
+        fsdp=arch in FSDP_ARCHS and cfg.moe is not None)
+
+
+def dryrun_serve(cfg, mesh, arch: str, shape: str, *, specs=None) -> dict:
+    """One prefill or decode step of this rank (:func:`build_dryrun_serve`)
+    on fake tensors, on an open (fake or real) world holding ``mesh``: its
+    flops, bytes, memory and collectives, in the reference's keys
+    (``mode`` "auto", no grad accumulation), and ``fake_step_s``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    kind = SHAPES[shape]["kind"]
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        step, args, info = build_dryrun_serve(cfg, mesh, arch, shape,
+                                              specs=specs)
+        with StepCounter() as count:
+            out = step(*args)
+        out_bytes = sum(_nbytes(t) for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+    wall = time.perf_counter() - t0
+    return {
+        "kind": kind,
+        "fake_step_s": round(wall, 2),
+        "flops": float(count.flops),
+        "bytes_accessed": float(count.bytes_accessed),
+        "transcendentals": float(count.transcendentals),
+        "memory": {
+            "argument_bytes": info["argument_bytes"],
+            "output_bytes": out_bytes,
+            "temp_bytes": count.peak,
+            "alias_bytes": info["alias_bytes"],
+        },
+        "collectives": count.coll,
+        "grad_accum": None,
+        "mode": "auto",
     }
 
 
@@ -760,9 +926,9 @@ def dryrun_one(arch: str, shape: str = "train_4k", multi_pod: bool = False,
     (``multi_pod``: 2x16x16) in a fake world opened and closed here.
     ``mesh_shape`` (dim name -> size), ``cfg``, ``specs`` and
     ``grad_accum`` replace the production mesh, the registry's config,
-    the shape's batch and the grad-accum factor, for small worlds and
-    reduced models.  Returns the reference's result keys; training shapes
-    only."""
+    the shape's batch (prompts, or the decode step's inputs) and the
+    grad-accum factor, for small worlds and reduced models.  Returns the
+    reference's result keys."""
     from ..configs import get_config
     from .mesh import (PRODUCTION_SHAPES, cluster_from_mesh, make_mesh,
                        make_production_mesh)
@@ -776,16 +942,14 @@ def dryrun_one(arch: str, shape: str = "train_4k", multi_pod: bool = False,
     }
     if not ok:
         return result
-    kind = SHAPES[shape]["kind"]
-    if kind != "train":
-        raise NotImplementedError(
-            f"dry run of {shape!r} ({kind}): the serving steps need tensor "
-            f"parallelism on the serving paths first (ROADMAP A4d)")
     with fake_world(math.prod(shape_of.values())):
         mesh = (make_mesh(shape_of, device="cpu") if mesh_shape else
                 make_production_mesh(multi_pod, device="cpu"))
-        result.update(dryrun_train(cfg, mesh, arch, specs=specs,
-                                   grad_accum=grad_accum))
+        if SHAPES[shape]["kind"] == "train":
+            result.update(dryrun_train(cfg, mesh, arch, specs=specs,
+                                       grad_accum=grad_accum))
+        else:
+            result.update(dryrun_serve(cfg, mesh, arch, shape, specs=specs))
     coll, flops = result["collectives"], result["flops"]
     spec = get_preset(cluster) if cluster else cluster_from_mesh(mesh)
     tp_degree = int(shape_of.get("model", 1))
@@ -857,8 +1021,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="train_4k",
-                    help="an input shape of launch/shapes.py, or 'all'; "
-                         "only training shapes run (ROADMAP A4d)")
+                    help="an input shape of launch/shapes.py, or 'all'")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--cluster", default=None, choices=list_presets(),

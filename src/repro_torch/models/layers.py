@@ -208,10 +208,13 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     per row, and ``positions`` (1,) or (B,1) to match).  Decode writes the
     new k/v into ``cache`` in place and returns it; the reference returns an
     updated copy.  Returns ``out``, or ``(out, cache)`` when a cache is
-    given or asked for.  With a tensor-parallel context ``tp`` (training
-    only) ``p`` holds this rank's slices: see :func:`_attention_tp`."""
+    given or asked for.  With a tensor-parallel context ``tp`` ``p`` holds
+    this rank's slices and the cache this rank's shard: see
+    :func:`_attention_tp`."""
     if tp is not None and tp.dim("attn", "wq") is not None:
-        return _attention_tp(p, cfg, x, positions, tp, window)
+        return _attention_tp(p, cfg, x, positions, tp, window, cache=cache,
+                             pos=pos, use_flash=use_flash,
+                             return_cache=return_cache, cache_len=cache_len)
     B, S, D = x.shape
     hd = cfg.hd
     q = x @ p["wq"].to(x.dtype)
@@ -227,65 +230,79 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
 
     new_cache = None
     if cache is not None:
-        # decode: write k, v at each row's position (pos % size for a
-        # window's ring buffer), clamped into the cache as the reference's
-        # dynamic_update_slice clamps
-        ck, cv = cache["k"], cache["v"]
-        csize = ck.shape[1]
-        pos = _row_positions(pos, B, x.device)
-        slot = pos % csize if window is not None else pos
-        slot = slot.clamp(0, csize - S)
-        rows = torch.arange(B, device=x.device)
-        quant = "k_scale" in cache
-        if quant:
-            # int8 KV cache: symmetric scales per (row, slot, KV head),
-            # stored in bf16; the entries are quantised with the f32 scale
-            cks, cvs = cache["k_scale"], cache["v_scale"]
-            kq, ks = _quantize_int8(k[:, 0])
-            vq, vs = _quantize_int8(v[:, 0])
-            ck[rows, slot] = kq
-            cv[rows, slot] = vq
-            cks[rows, slot] = ks.to(cks.dtype)
-            cvs[rows, slot] = vs.to(cvs.dtype)
-            new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
-        else:
-            ck[rows, slot] = k[:, 0].to(ck.dtype)
-            cv[rows, slot] = v[:, 0].to(cv.dtype)
-            new_cache = {"k": ck, "v": cv}
-        kpos = torch.arange(csize, device=x.device)[None, :]
-        if window is not None:
-            # ring buffer: entry i holds an absolute position within the
-            # last `csize` positions
-            age = (slot[:, None] - kpos) % csize
-            ok = age <= torch.clamp(pos, max=csize - 1)[:, None]
-        else:
-            ok = kpos <= pos[:, None]
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        mask = torch.where(ok, zero, torch.full_like(zero, _F32_MIN))
-        if quant:
+        mask, new_cache = _write_cache(cache, k, v, pos, window)
+        if "k_scale" in cache:
             # the whole cache dequantised every step, as in the reference
-            kd = ck.to(q.dtype) * cks[..., None].to(q.dtype)
-            vd = cv.to(q.dtype) * cvs[..., None].to(q.dtype)
+            ck, cv = cache["k"], cache["v"]
+            kd = ck.to(q.dtype) * cache["k_scale"][..., None].to(q.dtype)
+            vd = cv.to(q.dtype) * cache["v_scale"][..., None].to(q.dtype)
         else:
-            kd, vd = ck.to(q.dtype), cv.to(q.dtype)
+            kd, vd = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
         out = sdpa(q, kd, vd, mask[:, None, None, :])
     else:
         out = sdpa(q, k, v, None, use_flash=use_flash, window=window)
         if return_cache:
-            size = cache_len or S
-            take = min(S, size)
-            ck = torch.zeros((B, size, cfg.n_kv_heads, hd), dtype=x.dtype,
-                             device=x.device)
-            cv = torch.zeros_like(ck)
-            ck[:, :take] = k[:, S - take:]
-            cv[:, :take] = v[:, S - take:]
-            new_cache = {"k": ck, "v": cv}
+            new_cache = _fresh_cache(k, v, cache_len)
     out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(x.dtype)
     return (out, new_cache) if (return_cache or cache is not None) else out
 
 
+def _fresh_cache(k, v, cache_len: int) -> dict:
+    """A prefill's cache of ``cache_len`` (S by default) positions holding
+    the last of the prompt's k and v (B, S, KV, hd) from slot 0."""
+    B, S = k.shape[:2]
+    size = cache_len or S
+    take = min(S, size)
+    ck = k.new_zeros((B, size, *k.shape[2:]))
+    cv = v.new_zeros((B, size, *v.shape[2:]))
+    ck[:, :take] = k[:, S - take:]
+    cv[:, :take] = v[:, S - take:]
+    return {"k": ck, "v": cv}
+
+
+def _write_cache(cache: dict, k, v, pos, window):
+    """Decode: write each row's new k and v (B, 1, KV, hd) at its position
+    (``pos % size`` in a window's ring buffer), clamped into the cache as
+    the reference's ``dynamic_update_slice`` clamps, in place; an int8
+    cache gets the entries quantised with symmetric scales per (row,
+    slot, KV head), stored in bf16.  Returns the additive f32 mask (B,
+    size) of the entries each row reads, and the cache."""
+    ck, cv = cache["k"], cache["v"]
+    B, S = k.shape[:2]
+    csize = ck.shape[1]
+    pos = _row_positions(pos, B, k.device)
+    slot = pos % csize if window is not None else pos
+    slot = slot.clamp(0, csize - S)
+    rows = torch.arange(B, device=k.device)
+    if "k_scale" in cache:
+        kq, ks = _quantize_int8(k[:, 0])
+        vq, vs = _quantize_int8(v[:, 0])
+        ck[rows, slot] = kq
+        cv[rows, slot] = vq
+        cache["k_scale"][rows, slot] = ks.to(cache["k_scale"].dtype)
+        cache["v_scale"][rows, slot] = vs.to(cache["v_scale"].dtype)
+    else:
+        ck[rows, slot] = k[:, 0].to(ck.dtype)
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+    kpos = torch.arange(csize, device=k.device)[None, :]
+    if window is not None:
+        # ring buffer: entry i holds an absolute position within the last
+        # `csize` positions
+        age = (slot[:, None] - kpos) % csize
+        ok = age <= torch.clamp(pos, max=csize - 1)[:, None]
+    else:
+        ok = kpos <= pos[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=k.device)
+    mask = torch.where(ok, zero, torch.full_like(zero, _F32_MIN))
+    return mask, {n: cache[n] for n in ("k", "v", "k_scale", "v_scale")
+                  if n in cache}
+
+
 def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window, *,
-                  memory=None, plain: bool = False, scope=("attn",)):
+                  memory=None, plain: bool = False, scope=("attn",),
+                  cache: Optional[dict] = None, pos=None,
+                  use_flash: bool = False, return_cache: bool = False,
+                  cache_len: int = 0):
     """Tensor-parallel attention over the ``model`` group of ``tp``, by the
     reference's sharding rules (``distributed/sharding.py``).
 
@@ -298,6 +315,18 @@ def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window, *,
     reduced), k and v are replicated, every rank attends with all heads,
     and ``wo``, sharded on its output dim, gives output columns that
     ``gather`` joins.  Biases are replicated: a rank adds its heads' slice.
+    ``use_flash`` runs the rank's heads through the flash kernel, as
+    :func:`sdpa` routes it.
+
+    The cache holds this rank's shard by the rules' ``cache_specs``
+    (``tp.cache_dim("k")``): its KV heads where they divide the group
+    (then ``wk`` and ``wv`` are column-sharded), else its slice of
+    ``head_dim`` of every KV head.  A prefill stores the slice of the
+    whole k and v.  Against a ``head_dim``-sliced cache a decode step
+    gathers every query head (the unaligned layout has them all), takes
+    the partial scores of its slice in f32, sums them over the group,
+    weights its slice of v and gathers the heads' outputs back; the
+    layout's output projection follows (ROADMAP C28).
 
     ``plain`` is the attention of the encoder and of the decoder's
     cross-attention (:func:`cross_attention_fwd`): no rope, no bias, no
@@ -321,47 +350,75 @@ def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window, *,
     def rope(t):
         return t if plain else apply_rope(t, positions, cfg)
 
-    if tp.dim(*scope, "wq") == 0:
-        # unaligned: q from this rank's slice of the input dim, summed
+    unaligned = tp.dim(*scope, "wq") == 0
+    kv_local = False
+    if unaligned:
+        # q from this rank's slice of the input dim, summed
+        Hl = H
         xq = tp.local(tp.copy(x), -1)
         q = tp.reduce(xq @ p["wq"].to(dt))
         if cfg.qkv_bias and not plain:
             q = q + p["bq"].to(dt)
         k, v = proj(kv_in, "wk", False), proj(kv_in, "wv", False)
-        q = rope(q.reshape(B, S, H, hd))
-        k = rope(k.reshape(B, T, KV, hd))
-        out = sdpa(q, k, v.reshape(B, T, KV, hd), None, window=window,
-                   causal=not plain)
-        out = tp.copy(out.reshape(B, S, H * hd)) @ p["wo"].to(dt)
-        return tp.gather(out, -1)
-
-    Hl = H // tp.size
-    xs = tp.copy(x)
-    kvs = xs if memory is None else tp.copy(memory)
-    q = rope(proj(xs, "wq", True).reshape(B, S, Hl, hd))
-    if tp.dim(*scope, "wk") is not None:
-        KVl = KV // tp.size
-        k, v = proj(kvs, "wk", True), proj(kvs, "wv", True)
     else:
-        # replicated k and v: this rank's heads read the KV heads they map
-        # to, and only those get a gradient here
-        k = tp.copy(proj(kv_in, "wk", False))
-        v = tp.copy(proj(kv_in, "wv", False))
+        Hl = H // tp.size
+        xs = tp.copy(x)
+        kvs = xs if memory is None else tp.copy(memory)
+        q = proj(xs, "wq", True)
+        kv_local = tp.dim(*scope, "wk") is not None
+        if kv_local:
+            k, v = proj(kvs, "wk", True), proj(kvs, "wv", True)
+        else:
+            # replicated k and v: this rank's heads read the KV heads they
+            # map to, and only those get a gradient here
+            k = tp.copy(proj(kv_in, "wk", False))
+            v = tp.copy(proj(kv_in, "wv", False))
+    KVc = k.shape[-1] // hd                  # the KV heads this rank holds
+    q = rope(q.reshape(B, S, Hl, hd))
+    k = rope(k.reshape(B, T, KVc, hd))
+    v = v.reshape(B, T, KVc, hd)
+
+    def mine(t):
+        """The KV heads this rank's query heads read, of ``t``."""
+        if unaligned or kv_local:
+            return t
         G = H // KV
         first = tp.rank * Hl
         if Hl % G == 0:
-            KVl = Hl // G
-            k = k.reshape(B, T, KV, hd)[:, :, first // G:first // G + KVl]
-            v = v.reshape(B, T, KV, hd)[:, :, first // G:first // G + KVl]
-        else:
-            idx = torch.arange(first, first + Hl, device=x.device) // G
-            KVl = Hl
-            k = k.reshape(B, T, KV, hd)[:, :, idx]
-            v = v.reshape(B, T, KV, hd)[:, :, idx]
-    k = rope(k.reshape(B, T, KVl, hd))
-    out = sdpa(q, k, v.reshape(B, T, KVl, hd), None, window=window,
-               causal=not plain)
-    return tp.reduce(out.reshape(B, S, Hl * hd) @ p["wo"].to(dt))
+            return t[:, :, first // G:first // G + Hl // G].contiguous()
+        idx = torch.arange(first, first + Hl, device=t.device) // G
+        return t[:, :, idx]
+
+    def out_proj(o):
+        o = o.reshape(B, S, Hl * hd)
+        if unaligned:
+            return tp.gather(tp.copy(o) @ p["wo"].to(dt), -1)
+        return tp.reduce(o @ p["wo"].to(dt))
+
+    if cache is None:
+        out = out_proj(sdpa(q, mine(k), mine(v), None, use_flash=use_flash,
+                            window=window, causal=not plain))
+        if not return_cache:
+            return out
+        if tp.cache_dim("k") == 3:
+            k, v = tp.local(k, -1), tp.local(v, -1)
+        return out, _fresh_cache(k, v, cache_len)
+    mask, new_cache = _write_cache(
+        cache, *((tp.local(t, -1) if tp.cache_dim("k") == 3 else t)
+                 for t in (k, v)), pos, window)
+    kd, vd = cache["k"].to(dt), cache["v"].to(dt)
+    if tp.cache_dim("k") != 3:
+        return out_proj(sdpa(q, mine(kd), mine(vd),
+                             mask[:, None, None, :])), new_cache
+    # this rank's slice of head_dim: partial scores of every query head
+    qa = q if unaligned else tp.gather(q, 2)
+    qg = tp.local(qa, -1).reshape(B, S, KV, H // KV, -1)
+    scores = tp.reduce(torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                                    kd.float())) / math.sqrt(hd)
+    w = torch.softmax(scores + mask[:, None, None, None, :], dim=-1)
+    o = torch.einsum("bkgst,btkh->bskgh", w.to(vd.dtype), vd)
+    o = tp.gather(o.reshape(B, S, H, -1), -1)
+    return out_proj(o if unaligned else tp.local(o, 2)), new_cache
 
 
 def cross_attention_fwd(p: dict, cfg: ModelConfig, x, memory, tp=None,
@@ -446,13 +503,17 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     latent at its own position in place (clamped, as the reference's
     ``dynamic_update_slice``) and attends over the whole cache, masked.
 
-    Under a tensor-parallel context ``tp`` (training) whose rules shard
-    the heads, this rank computes its ``H / m`` heads: ``wq`` (or
-    ``w_uq`` after the replicated ``w_dq`` and ``q_norm``), ``w_uk`` and
-    ``w_uv`` are column-sharded over whole heads (their head-major
-    columns); the latent and the shared rope key, computed whole from
-    replicated leaves, reach the local heads through ``copy``; ``wo`` is
-    row-sharded, its partial sums reduced."""
+    Under a tensor-parallel context ``tp`` whose rules shard the heads,
+    this rank computes its ``H / m`` heads: ``wq`` (or ``w_uq`` after the
+    replicated ``w_dq`` and ``q_norm``), ``w_uk`` and ``w_uv`` are
+    column-sharded over whole heads (their head-major columns); the latent
+    and the shared rope key, computed whole from replicated leaves, reach
+    the local heads through ``copy``; ``wo`` is row-sharded, its partial
+    sums reduced.  The cache holds this rank's slice of the last dim of
+    ``c_kv`` and of ``k_rope`` where the rules shard them
+    (``tp.cache_dim``): a prefill stores its slice of the whole latent,
+    and a decode step writes its slice and all-gathers the whole cache
+    over the group before the up projections (ROADMAP C28)."""
     m = cfg.mla
     B, S, D = x.shape
     H = cfg.n_heads
@@ -486,11 +547,16 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
         pos = _row_positions(pos, B, x.device)
         slot = pos.clamp(0, T - S)
         rows = torch.arange(B, device=x.device)
-        cc[rows, slot] = c_kv[:, 0].to(cc.dtype)
-        cr[rows, slot] = k_rope[:, 0, 0].to(cr.dtype)
+        cd, rd = (tp.cache_dim(n) if tp is not None else None
+                  for n in ("c_kv", "k_rope"))
+        cc[rows, slot] = (c_kv[:, 0] if cd is None else
+                          tp.local(c_kv[:, 0], -1)).to(cc.dtype)
+        cr[rows, slot] = (k_rope[:, 0, 0] if rd is None else
+                          tp.local(k_rope[:, 0, 0], -1)).to(cr.dtype)
         new_cache = {"c_kv": cc, "k_rope": cr}
-        c_kv_all = cc.to(x.dtype)
-        k_rope_all = cr.to(x.dtype)[:, :, None]
+        c_kv_all = (cc if cd is None else tp.gather(cc, -1)).to(x.dtype)
+        k_rope_all = (cr if rd is None else
+                      tp.gather(cr, -1)).to(x.dtype)[:, :, None]
         ok = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         bias = torch.where(ok, zero, torch.full_like(zero, _F32_MIN))
@@ -501,11 +567,15 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
         if return_cache:
             size = cache_len or S
             take = min(S, size)
-            cc = torch.zeros((B, size, m.kv_lora_rank), dtype=x.dtype,
-                             device=x.device)
-            cr = torch.zeros((B, size, dr), dtype=x.dtype, device=x.device)
-            cc[:, :take] = c_kv[:, :take]
-            cr[:, :take] = k_rope[:, :take, 0]
+            c_new, r_new = c_kv, k_rope[:, :, 0]
+            if tp is not None and tp.cache_dim("c_kv") is not None:
+                c_new = tp.local(c_new, -1)
+            if tp is not None and tp.cache_dim("k_rope") is not None:
+                r_new = tp.local(r_new, -1)
+            cc = c_new.new_zeros((B, size, c_new.shape[-1]))
+            cr = r_new.new_zeros((B, size, r_new.shape[-1]))
+            cc[:, :take] = c_new[:, :take]
+            cr[:, :take] = r_new[:, :take]
             new_cache = {"c_kv": cc, "k_rope": cr}
 
     # the latent's up projections: k_nope (B, T, H, dn), v (B, T, H, dv)
@@ -529,7 +599,8 @@ def mla_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     scores = (s_nope + s_rope).float() * scale + bias
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhst,bthd->bshd", w, vv).reshape(B, S, -1)
-    return out @ p["wo"].to(x.dtype), new_cache
+    out = out @ p["wo"].to(x.dtype)
+    return (tp.reduce(out) if sharded else out), new_cache
 
 
 # --------------------------------------------------------------------- FFN

@@ -15,9 +15,10 @@ Entry points, as in the reference:
     loss_fn(params, cfg, batch)                mean next-token CE + MoE aux
     encode(params, cfg, frames)                the encoder's output (memory)
     init_cache(cfg, batch, cache_len)          per-layer decode state
-    prefill(params, cfg, tokens, cache_len, prefix_emb=, enc_frames=)
+    prefill(params, cfg, tokens, cache_len, prefix_emb=, enc_frames=, tp=)
                                                (last logits, caches)
-    decode_step(params, cfg, caches, token, pos, memory=) (logits, caches)
+    decode_step(params, cfg, caches, token, pos, memory=, tp=)
+                                               (logits, caches)
 
 The per-layer tree's leaves come in the reference's ``jax.tree.leaves``
 order (sorted keys: ``embed``, ``encoder``, ``final_norm``, each layer's,
@@ -168,11 +169,11 @@ def _embed_positions(params, cfg: ModelConfig, tokens, tp=None,
     return x, torch.arange(S, device=x.device)
 
 
-def _decode_embed(params, cfg: ModelConfig, token, pos):
+def _decode_embed(params, cfg: ModelConfig, token, pos, tp=None):
     """A decode step's input: the embedded tokens (B, 1, D) with the
     sinusoid at each row's position where :func:`_sinusoid_positions`
     says, the positions (B, 1), and ``pos`` as (B,)."""
-    x = _embed(params, cfg, token[:, None])
+    x = _embed(params, cfg, token[:, None], tp)
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
     if _sinusoid_positions(cfg):
@@ -201,9 +202,9 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     through the flash-attention kernel (never MLA, nor cross-attention, as
     in the reference) and the RG-LRU and WKV-6 recurrences through their
     kernels; ``route_rows`` routes each batch row's tokens through the
-    experts as a batch of their own.  ``tp``, a tensor-parallel context
-    (training only), runs the block on this rank's slices, with the
-    leaves' specs of layer ``li`` (``tp.layer(li)``)."""
+    experts as a batch of their own.  ``tp``, a tensor-parallel context,
+    runs the block on this rank's slices, with the leaves' specs of layer
+    ``li`` (``tp.layer(li)``), and its cache on this rank's shard."""
     want_cache = return_cache or cache is not None
     if tp is not None:
         tp = tp.layer(li)
@@ -219,7 +220,7 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
     if cfg.block_kind(li) == "rwkv":
         tm_out, tnew = R.rwkv_time_mix(
             p["tmix"], cfg, h, state=cache["tmix"] if cache else None,
-            use_kernel=use_kernels, tp=tp)
+            use_kernel=use_kernels, tp=tp, serve=want_cache)
         x = x + tm_out
         h2 = L.norm_fwd(p["ln2"], cfg, x)
         cm_out, cnew = R.rwkv_channel_mix(
@@ -373,13 +374,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
     return out
 
 
-def _inputs(params, cfg: ModelConfig, tokens, prefix_emb, enc_frames):
+def _inputs(params, cfg: ModelConfig, tokens, prefix_emb, enc_frames,
+            tp=None):
     """The decoder's input (B, P + S, D), its positions, the prefix length
     P (0 without a prefix) and the encoder's output (None without
     frames)."""
-    x, positions = _embed_positions(params, cfg, tokens,
+    x, positions = _embed_positions(params, cfg, tokens, tp,
                                     prefix_emb=prefix_emb)
-    memory = (encode(params, cfg, enc_frames) if enc_frames is not None
+    memory = (encode(params, cfg, enc_frames, tp) if enc_frames is not None
               else None)
     return x, positions, x.shape[1] - tokens.shape[1], memory
 
@@ -427,27 +429,52 @@ def loss_fn(params, cfg: ModelConfig, batch, *, use_kernels: bool = False,
     return (logz - gold).mean() + aux
 
 
+def _serving_tp(cfg: ModelConfig, tp) -> None:
+    """Refuse what the serving paths do not run under ``tp``."""
+    if tp is not None and cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            f"{cfg.name}: the int8 KV cache under tensor parallelism is not "
+            f"ported (ROADMAP A8); the reference's dry run never builds one")
+
+
+def _layer_params(p, li: int, tp):
+    """Layer ``li``'s parameters whole over the data ranks under a ZeRO-3
+    ``tp`` (gathered here), else as they are."""
+    return p if tp is None else tp.layer(li).unshard(p)
+
+
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
-            prefix_emb=None, enc_frames=None, use_kernels: bool = False):
+            prefix_emb=None, enc_frames=None, use_kernels: bool = False,
+            tp=None):
     """Run a (B, S) prompt, after its (B, P, D) ``prefix_emb`` where the
     config has a prefix, and with cross-attention over the encoder's output
     of ``enc_frames`` where given; returns the last position's logits (B,
     vocab) and one fresh cache per layer (``init_cache``'s layout, k/v of
-    length ``cache_len``, the prefix's at positions 0..P-1)."""
+    length ``cache_len``, the prefix's at positions 0..P-1).
+
+    With a tensor-parallel context ``tp``, ``params`` holds this rank's
+    slices (the leaves outside the layers already whole over the data
+    ranks under ZeRO-3: the stacked model's :func:`..stacked.prefill`
+    gathers them), the embedding is the vocab-parallel lookup, each layer
+    runs on this rank's slices (under ZeRO-3 gathered first, as in
+    training), the logits come out whole on every rank of the group and
+    each cache is this rank's shard (``tp.cache_dim``)."""
+    _serving_tp(cfg, tp)
     x, positions, _, memory = _inputs(params, cfg, tokens, prefix_emb,
-                                      enc_frames)
+                                      enc_frames, tp)
     caches = []
     for li, p in enumerate(params["layers"]):
-        x, c = _layer_fwd(p, cfg, x, positions, return_cache=True,
-                          cache_len=cache_len, use_kernels=use_kernels, li=li,
-                          memory=memory)
+        x, c = _layer_fwd(_layer_params(p, li, tp), cfg, x, positions,
+                          return_cache=True, cache_len=cache_len,
+                          use_kernels=use_kernels, li=li, memory=memory,
+                          tp=tp)
         caches.append(c)
     x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
-    return _unembed(params, cfg, x)[:, 0], caches
+    return _unembed(params, cfg, x, tp)[:, 0], caches
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
-                memory=None, route_rows: bool = False):
+                memory=None, route_rows: bool = False, tp=None):
     """One serving step over per-layer ``caches``.  ``token`` (B,) int;
     ``pos`` the position each row writes, a scalar or (B,).  Writes the
     caches in place (the reference returns updated copies) and returns
@@ -456,12 +483,15 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
     cross k and v.  The experts route the B rows together, as the
     reference's ``decode_step`` at batch B, unless ``route_rows`` routes
     each row as a batch of one, as the reference engine's vmapped batch-1
-    step does (the capacity then drops no token)."""
-    x, positions, pos = _decode_embed(params, cfg, token, pos)
+    step does (the capacity then drops no token).  ``tp`` as in
+    :func:`prefill`: ``caches`` hold this rank's shards."""
+    _serving_tp(cfg, tp)
+    x, positions, pos = _decode_embed(params, cfg, token, pos, tp)
     out = []
     for li, (p, c) in enumerate(zip(params["layers"], caches)):
-        x, c = _layer_fwd(p, cfg, x, positions, cache=c, pos=pos, li=li,
-                          route_rows=route_rows, memory=memory)
+        x, c = _layer_fwd(_layer_params(p, li, tp), cfg, x, positions,
+                          cache=c, pos=pos, li=li, route_rows=route_rows,
+                          memory=memory, tp=tp)
         out.append(c)
     x = L.norm_fwd(params["final_norm"], cfg, x)
-    return _unembed(params, cfg, x)[:, 0], out
+    return _unembed(params, cfg, x, tp)[:, 0], out

@@ -92,15 +92,17 @@ def recurrent_block_fwd(p: dict, cfg: ModelConfig, x, *,
     new state).  Returns ``out``, or ``(out, state)`` when a state is given
     or asked for.
 
-    Under a tensor-parallel context ``tp`` (training) whose rules shard the
-    block, this rank computes its slice of the L channels: ``w_x`` and
+    Under a tensor-parallel context ``tp`` whose rules shard the block,
+    this rank computes its slice of the L channels: ``w_x`` and
     ``w_gate`` are column-sharded; the conv and the recurrence are per
     channel, on this rank's slices of the replicated ``conv_w``, ``conv_b``
     and ``lam`` (each through ``copy``); the gates' ``w_ri`` and ``w_ii``
     are column-sharded over an input of all L channels, so the conv output
     is gathered and, since each rank's gates give only part of its
     gradient, passed through ``copy``; ``w_out`` is row-sharded, its
-    partial sums reduced."""
+    partial sums reduced.  The state holds the same slice of ``h`` and
+    ``conv``, as the rules' ``cache_specs`` shard them; a prefill through
+    the kernel runs it on this rank's channels."""
     r = cfg.recurrent
     B, S, D = x.shape
     W = r.conv_width
@@ -146,7 +148,9 @@ def recurrent_block_fwd(p: dict, cfg: ModelConfig, x, *,
             h = kops.rglru_scan(conv, r_gate, i_gate, lam)
         else:
             h = _rg_lru_scan(conv, r_gate, i_gate, lam)
-        new_state = {"h": h[:, -1], "conv": new_conv}
+        # copies: a view would keep the whole sequence's h and conv input
+        # alive as long as the cache
+        new_state = {"h": h[:, -1].clone(), "conv": new_conv.clone()}
     out = (h * gate) @ p["w_out"].to(x.dtype)
     if sharded:
         out = tp.reduce(out)
@@ -341,15 +345,34 @@ def _wkv6_scan(r, k, v, w, u, chunk: Optional[int] = None):
         r, k, v, w, u, chunk or wkv_chunk(B, S, H, hd))
 
 
+def _prev_whole(tp, name: str, state):
+    """A state's ``prev`` (B, D) whole, gathered over ``tp``'s group where
+    the cache holds this rank's slice of it; None without a state."""
+    if state is None:
+        return None
+    if tp is not None and tp.cache_dim(name, "prev") is not None:
+        return tp.gather(state["prev"], -1)
+    return state["prev"]
+
+
+def _prev_shard(tp, name: str, last):
+    """The ``prev`` the cache keeps of ``last`` (B, D): this rank's slice
+    where the rules shard it."""
+    if tp is not None and tp.cache_dim(name, "prev") is not None:
+        return tp.local(last, -1)
+    return last
+
+
 def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
                   state: Optional[dict] = None, use_kernel: bool = False,
-                  tp=None):
+                  tp=None, serve: bool = False):
     """RWKV-6 time mix over x (B, S, D).  ``state`` (decode, S == 1):
     ``{"wkv": (B, H, hd, hd) f32, "prev": (B, D)}``, updated in place and
     returned.  Returns ``(out, state)``; without a state, the new one holds
     the final WKV state, from the kernel too, and the last token.
+    ``serve`` says the returned state is kept (a prefill's cache).
 
-    Under a tensor-parallel context ``tp`` (training) whose rules shard the
+    Under a tensor-parallel context ``tp`` whose rules shard the
     block, ``w_r``, ``w_k``, ``w_v`` and ``w_g`` are column-sharded (their
     token-shifted inputs through ``copy``) and ``w_o`` is row-sharded, its
     partial sums reduced.  Where this rank's ``D / m`` columns are whole
@@ -361,11 +384,19 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
     ``copy`` (each rank reads the gathered columns differently, so every
     rank's gradient terms must be summed), the scan and the per-head group
     norm run on the covering heads, and the rank keeps its own columns
-    before ``* g`` and ``w_o``."""
+    before ``* g`` and ``w_o``.
+
+    The state under ``tp`` is this rank's shard by the rules'
+    ``cache_specs``: ``prev`` its slice of the width where the group
+    divides it (gathered before the token shift, each new one stored
+    sliced), ``wkv`` its heads where the group divides them.  Where the
+    columns split a head the rules keep ``wkv`` whole on every rank, so a
+    prefill or decode step with a state runs every head, not just the
+    covering ones (ROADMAP C24)."""
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd
     sharded = tp is not None and tp.dim("tmix", "w_r") is not None
-    prev = state["prev"] if state is not None else None
+    prev = _prev_whole(tp, "tmix", state)
     xr, xk, xv, xw, xg = (_token_shift(x, p[f"mu_{n}"], prev)
                           for n in "rkvwg")
     dd = torch.tanh(xw @ p["wA"].to(x.dtype)) @ p["wB"].to(x.dtype)
@@ -385,6 +416,8 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
         # cover; `own` is where its columns start within those heads
         c0 = tp.rank * (D // tp.size)
         h0, h1 = c0 // hd, -(-(c0 + D // tp.size) // hd)
+        if serve or state is not None:
+            h0, h1 = 0, H
         own = c0 - h0 * hd
         r, k, v = (tp.copy(tp.gather(t, -1))[..., h0 * hd:h1 * hd]
                    for t in (r, k, v))
@@ -404,7 +437,7 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
         out = torch.einsum("bhk,bhkv->bhv", rt,
                            s_prev + u[None, :, :, None] * kv)
         state["wkv"].copy_(wt[..., None] * s_prev + kv)
-        state["prev"].copy_(x[:, -1])
+        state["prev"].copy_(_prev_shard(tp, "tmix", x[:, -1]))
         out = out[:, None].to(x.dtype)
         new_state = state
     else:
@@ -413,7 +446,8 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x, *,
             out, final = kops.rwkv6_wkv(r, k, v, w, u)
         else:
             out, final = _wkv6_scan(r, k, v, w, u)
-        new_state = {"wkv": final, "prev": x[:, -1]}
+        new_state = {"wkv": final,
+                     "prev": _prev_shard(tp, "tmix", x[:, -1]).clone()}
     # group norm over each head (ln_x), in f32
     of = out.float()
     mu = of.mean(-1, keepdim=True)
@@ -432,11 +466,12 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x, *,
     S, D).  ``state`` (decode): ``{"prev": (B, D)}``, updated in place.
     Returns ``(out, state)``.
 
-    Under a tensor-parallel context ``tp`` (training): ``c_k`` column- and
-    ``c_v`` row-sharded, their partial sums reduced; ``c_r`` is
-    column-sharded, but the receptance multiplies the whole value, so its
-    columns are gathered first."""
-    prev = state["prev"] if state is not None else None
+    Under a tensor-parallel context ``tp``: ``c_k`` column- and ``c_v``
+    row-sharded, their partial sums reduced; ``c_r`` is column-sharded,
+    but the receptance multiplies the whole value, so its columns are
+    gathered first.  ``prev`` is kept as :func:`rwkv_time_mix` keeps
+    its own."""
+    prev = _prev_whole(tp, "cmix", state)
     xk = _token_shift(x, p["cmu_k"], prev)
     xr = _token_shift(x, p["cmu_r"], prev)
     k_sharded = tp is not None and tp.dim("tmix", "c_k") is not None
@@ -448,7 +483,8 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x, *,
                       @ p["c_r"].to(x.dtype))
     out = ((tp.gather(r, -1) if r_sharded else r)
            * (tp.reduce(kv) if k_sharded else kv))
+    last = _prev_shard(tp, "cmix", x[:, -1])
     if state is None:
-        return out, {"prev": x[:, -1]}
-    state["prev"].copy_(x[:, -1])
+        return out, {"prev": last.clone()}
+    state["prev"].copy_(last)
     return out, state

@@ -325,7 +325,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
-                memory=None, route_rows: bool = False):
+                memory=None, route_rows: bool = False, tp=None):
     """One serving step.  ``token`` (B,) int; ``pos`` the position each row
     writes: a scalar, as in the reference, or (B,) for one per row.
     Writes the new k/v, latents and recurrent states into ``caches`` in
@@ -334,22 +334,35 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
     experts route the B rows together, as the reference's ``decode_step``
     does (its capacity from T = B may drop tokens); ``route_rows`` routes
     each row as a batch of one, as the reference engine's vmap over
-    batch-1 steps does."""
+    batch-1 steps does.
+
+    With a tensor-parallel context ``tp``, ``params`` holds this rank's
+    slices and ``caches`` its shards (``distributed.tensor_parallel.
+    shard_caches``), the rows are this data rank's, and the logits come
+    out whole on every rank of the model group; under ZeRO-3 the leaves
+    outside the layers are gathered over the data ranks here and each
+    layer's where it runs, as :func:`hidden_forward` does."""
+    if tp is not None:
+        params = tp.unshard(params)
     logits, _ = M.decode_step(M.from_stacked(params, cfg), cfg,
                               _per_layer(caches, cfg), token, pos,
-                              memory=memory, route_rows=route_rows)
+                              memory=memory, route_rows=route_rows, tp=tp)
     return logits, caches
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
-            prefix_emb=None, enc_frames=None, use_kernels: bool = False):
+            prefix_emb=None, enc_frames=None, use_kernels: bool = False,
+            tp=None):
     """Run a (B, S) prompt (after its ``prefix_emb`` where the config has
     a prefix; cross-attending the encoder's output of ``enc_frames`` where
     given); returns the last position's logits (B, vocab) and fresh
     caches: the prompt's k/v in caches of length ``cache_len``, and each
-    recurrent block's last state."""
+    recurrent block's last state.  ``tp`` as in :func:`decode_step`: the
+    caches come out as this rank's shards."""
+    if tp is not None:
+        params = tp.unshard(params)
     logits, per_layer = M.prefill(M.from_stacked(params, cfg), cfg, tokens,
                                   cache_len, prefix_emb=prefix_emb,
                                   enc_frames=enc_frames,
-                                  use_kernels=use_kernels)
+                                  use_kernels=use_kernels, tp=tp)
     return logits, _stack_caches(cfg, per_layer)

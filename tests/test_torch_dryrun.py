@@ -13,9 +13,15 @@ mesh bridge against the reference's ``repro.launch`` on the CPU:
   (2, 16, 16); ``make_production_mesh`` on a fake world;
 * the fake dry run: its collectives equal, op by op, those the same step
   issues on a real gloo (2, 2) mesh through the same counter, for a ZeRO-3
-  model and for an RWKV-6 model whose heads split over the model ranks;
-  its flops equal ``FlopCounterMode``'s; its JSON read by the port's
-  ``samples_from_dryrun`` and by ``benchmarks/roofline.py``.
+  model and for an RWKV-6 model whose heads split over the model ranks,
+  and for a prefill (RWKV-6's split heads) and decode steps (ZeRO-3
+  DeepSeek-V2 and a ``head_dim``-sharded cache); its flops equal
+  ``FlopCounterMode``'s; its JSON read by the port's
+  ``samples_from_dryrun`` and by ``benchmarks/roofline.py``;
+* ``cache_specs`` against the reference's ``cache_shardings`` for every
+  arch at ``decode_32k`` and ``long_500k`` on the production meshes, the
+  bytes each device holds with them, and the dry run's decode holding
+  that cache shard; the serving shapes on a small fake world.
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` in ``os.environ``
 (for 512 host devices); the fixture restores the environment, so the
@@ -23,6 +29,7 @@ variable reaches no subprocess of this worker.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -313,8 +320,18 @@ def test_make_production_mesh_on_a_fake_world(multi_pod, rank):
 # --------------------------------------------------------------- dry run
 # (arch, config changes): a ZeRO-3 model, and RWKV-6 at 5 heads of 64
 # over 2 model ranks (2.5 heads a rank, as rwkv6-3b's 40 over 16)
-CASES = [("deepseek-coder-33b", {}),
-         ("rwkv6-3b", dict(d_model=320, n_heads=5, n_kv_heads=5))]
+WIDE = dict(d_model=320, n_heads=5, n_kv_heads=5)
+CASES = [("deepseek-coder-33b", {}), ("rwkv6-3b", WIDE)]
+# (arch, config changes, shape) of each step held to a real one: the
+# training steps of CASES, RWKV-6's prefill over split heads, and decode
+# steps of ZeRO-3 DeepSeek-V2 (MLA, routed experts) and of a model whose
+# single KV head leaves its cache sharded on head_dim
+STEPS = ([(arch, kw, "train_4k") for arch, kw in CASES]
+         + [("rwkv6-3b", WIDE, "prefill_32k"),
+            ("deepseek-v2-236b", {}, "decode_32k"),
+            ("paligemma-3b", {}, "decode_32k")])
+STEP_IDS = ["deepseek-coder-33b-kw0", "rwkv6-3b-kw1", "rwkv6-3b-prefill",
+            "deepseek-v2-236b-decode", "paligemma-3b-decode"]
 BATCH, SEQ, ACCUM = 8, 64, 2
 
 
@@ -322,9 +339,16 @@ def _cfg(arch, kw):
     return dataclasses.replace(get_config(arch).reduced(), **kw)
 
 
-def _specs():
-    return {"tokens": torch.empty((BATCH, SEQ), dtype=torch.int64,
-                                  device="meta")}
+def _specs(cfg=None, shape="train_4k"):
+    """Reduced inputs of ``shape``: :data:`BATCH` rows of :data:`SEQ`
+    tokens, or a decode step over caches of :data:`SEQ`."""
+    if SHAPES.SHAPES[shape]["kind"] != "decode":
+        return {"tokens": torch.empty((BATCH, SEQ), dtype=torch.int64,
+                                      device="meta")}
+    from repro_torch.models import stacked as ST
+    return {"token": torch.empty((BATCH,), dtype=torch.int64, device="meta"),
+            "pos": torch.empty((), dtype=torch.int64, device="meta"),
+            "caches": ST.init_cache(cfg, BATCH, SEQ, device="meta")}
 
 
 _WORKER = r"""
@@ -341,17 +365,23 @@ meta = json.load(open(f"{d}/meta.json"))
 dist.init_process_group("gloo", init_method=f"file://{d}/pg", rank=rank,
                         world_size=4)
 mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+sys.path.insert(0, meta["tests"])
+from test_torch_dryrun import _specs
 out = {}
-for arch, kw in meta["cases"]:
+for arch, kw, shape in meta["cases"]:
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
-    specs = {"tokens": torch.empty(meta["tokens"], dtype=torch.int64,
-                                   device="meta")}
-    step, args, info = DR.build_dryrun_train(cfg, mesh, arch, specs=specs,
-                                             grad_accum=meta["accum"])
+    specs = _specs(cfg, shape)
+    if shape == "train_4k":
+        step, args, info = DR.build_dryrun_train(
+            cfg, mesh, arch, specs=specs, grad_accum=meta["accum"])
+    else:
+        step, args, info = DR.build_dryrun_serve(cfg, mesh, arch, shape,
+                                                 specs=specs)
+        info = {"mode": "auto"}
     with DR.StepCounter() as count:
         step(*args)
-    out[arch] = {"coll": count.coll, "flops": count.flops,
-                 "mode": info["mode"]}
+    out[f"{arch}__{shape}"] = {"coll": count.coll, "flops": count.flops,
+                               "mode": info["mode"]}
 if rank == 0:
     json.dump(out, open(f"{d}/out.json", "w"))
 dist.barrier()
@@ -365,7 +395,8 @@ def gloo_counts(tmp_path_factory):
     :class:`StepCounter` on rank 0."""
     d = tmp_path_factory.mktemp("dryrun")
     (d / "meta.json").write_text(json.dumps(
-        {"cases": CASES, "tokens": [BATCH, SEQ], "accum": ACCUM}))
+        {"cases": STEPS, "accum": ACCUM,
+         "tests": os.path.dirname(os.path.abspath(__file__))}))
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(d), str(r)],
                               env=ENV, stderr=subprocess.PIPE, text=True)
              for r in range(4)]
@@ -375,24 +406,43 @@ def gloo_counts(tmp_path_factory):
     return json.loads((d / "out.json").read_text())
 
 
-@pytest.mark.parametrize("arch,kw", CASES)
-def test_fake_dry_run_counts_equal_a_real_step(gloo_counts, arch, kw,
+@pytest.mark.parametrize("arch,kw,shape", STEPS, ids=STEP_IDS)
+def test_fake_dry_run_counts_equal_a_real_step(gloo_counts, arch, kw, shape,
                                                tmp_path):
     """``dryrun_one`` on a fake (2, 2) world against the same step on four
     gloo ranks: equal collectives, op by op (count, result bytes, traffic
     and group sizes), and equal flops.  ZeRO-3 gathers over the data
-    group; RWKV-6's split heads add the model group's r, k, v gathers.
-    The result carries the reference's keys, and the pricing readers take
-    its JSON."""
-    res = DR.dryrun_one(arch, mesh_shape={"data": 2, "model": 2},
-                        cfg=_cfg(arch, kw), specs=_specs(),
-                        grad_accum=ACCUM, verbose=False)
-    want = gloo_counts[arch]
+    group; RWKV-6's split heads add the model group's r, k, v gathers
+    (in training and in a prefill); a decode step of ZeRO-3 DeepSeek-V2
+    gathers each layer over the data group and MLA's latent cache over
+    the model group; a ``head_dim``-sharded cache's partial scores are
+    all-reduced over the model group.  The result carries the reference's
+    keys, and the pricing readers take its JSON."""
+    cfg = _cfg(arch, kw)
+    res = DR.dryrun_one(arch, shape, mesh_shape={"data": 2, "model": 2},
+                        cfg=cfg, specs=_specs(cfg, shape),
+                        grad_accum=ACCUM if shape == "train_4k" else None,
+                        verbose=False)
+    want = gloo_counts[f"{arch}__{shape}"]
     assert json.loads(json.dumps(res["collectives"])) == want["coll"]
     assert res["flops"] == want["flops"] > 0
+    per_op = res["collectives"]["per_op"]
+    m = res["memory"]
+    if shape != "train_4k":
+        assert res["mode"] == want["mode"] == "auto"
+        assert res["grad_accum"] is None
+        assert res["kind"] == SHAPES.SHAPES[shape]["kind"]
+        assert per_op["all-gather"]["by_group"][2]["count"] > 0
+        if arch in SHAPES.FSDP_ARCHS:
+            # every layer's ZeRO-3 shards gathered over the data group
+            assert per_op["all-gather"]["count"] > \
+                2 * cfg.n_layers + 1
+        assert m["argument_bytes"] > m["alias_bytes"] >= 0
+        assert m["temp_bytes"] > 0 and m["output_bytes"] > 0
+        assert (m["alias_bytes"] > 0) == (shape == "decode_32k")
+        return
     assert res["mode"] == want["mode"] == (
         "fsdp_tp" if arch in SHAPES.FSDP_ARCHS else "ddp_tp")
-    per_op = res["collectives"]["per_op"]
     if arch in SHAPES.FSDP_ARCHS:
         assert per_op["reduce-scatter"]["count"] > 0
     else:
@@ -401,7 +451,6 @@ def test_fake_dry_run_counts_equal_a_real_step(gloo_counts, arch, kw,
                 "bytes_accessed", "transcendentals", "grad_accum",
                 "cluster"):
         assert key in res
-    m = res["memory"]
     assert m["argument_bytes"] > m["alias_bytes"] > 0 and m["temp_bytes"] > 0
     path = tmp_path / f"{arch}__train_4k__pod2x2.json"
     path.write_text(json.dumps(res))
@@ -518,12 +567,156 @@ def test_dryrun_grads_is_the_step_before_its_update():
     assert info["params_bytes"] <= grads["temp_bytes"] <= m["temp_bytes"]
 
 
-def test_serving_shapes_wait_for_a4d():
-    """Prefill and decode raise, naming ROADMAP A4d; a shape the arch
-    cannot take returns the reference's verdict without running."""
-    for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="A4d"):
-            DR.dryrun_one("tinyllama-1.1b", shape, verbose=False)
+# the reference's result keys of a compiled serving step; the port runs
+# the step instead of compiling it (ROADMAP C23)
+_SERVE_KEYS = {"arch", "shape", "mesh", "applicable", "reason", "cluster",
+               "kind", "flops", "bytes_accessed", "transcendentals",
+               "memory", "collectives", "grad_accum", "mode"}
+
+
+def test_serving_shapes_wait_for_a4d(RDR):
+    """ROADMAP A4d, now ported: ``prefill_32k``, ``decode_32k`` and
+    ``long_500k`` run on a small fake (2, 2) world for reduced
+    tinyllama-1.1b (the shapes' own batch and lengths: 32 prompts of
+    32768, 128 rows over caches of 32768, one row over a sliding window
+    of 4096) and return the reference's keys, ``lower_s`` and
+    ``compile_s`` replaced by ``fake_step_s``; a shape the arch cannot
+    take returns the reference's verdict without running."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        res = DR.dryrun_one("tinyllama-1.1b", shape,
+                            mesh_shape={"data": 2, "model": 2}, cfg=cfg,
+                            verbose=False)
+        assert _SERVE_KEYS <= set(res) and "fake_step_s" in res
+        assert sorted(res["memory"]) == ["alias_bytes", "argument_bytes",
+                                         "output_bytes", "temp_bytes"]
+        assert res["mode"] == "auto" and res["grad_accum"] is None
+        assert res["kind"] == SHAPES.SHAPES[shape]["kind"]
+        assert res["flops"] > 0 and res["cluster"]["spec"]
+        if shape == "long_500k":
+            assert res["reason"] == "sliding-window variant (w=4096)"
     res = DR.dryrun_one("deepseek-v2-236b", "long_500k", verbose=False)
-    assert res["applicable"] is False and "quadratic" in res["reason"]
+    want = RDR.dryrun_one("deepseek-v2-236b", "long_500k", False,
+                          verbose=False)
+    assert res == want and res["applicable"] is False
+    assert "quadratic" in res["reason"]
     assert not dist.is_initialized()
+
+
+def _shard_bytes(shape, nbytes: int, spec, mesh_shape: dict) -> int:
+    """The bytes one device holds of a leaf of ``shape`` laid out by
+    ``spec`` on a mesh of ``mesh_shape``."""
+    n = nbytes
+    for dim, entry in zip(shape, spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                assert dim % mesh_shape[name] == 0
+                n //= mesh_shape[name]
+    return n
+
+
+@pytest.mark.parametrize("mesh", [{"data": 16, "model": 16},
+                                  {"pod": 2, "data": 16, "model": 16}],
+                         ids=["pod16x16", "pod2x16x16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_specs_match_the_reference(arch, mesh):
+    """The port's ``cache_specs`` against the reference's
+    ``cache_shardings`` on the ``jax.eval_shape`` caches of
+    ``decode_32k`` and ``long_500k`` (where it applies), leaf by leaf, on
+    a jax ``AbstractMesh``; and the bytes a device holds of the whole
+    cache, from each package's own specs, equal."""
+    import jax
+    from jax.sharding import AbstractMesh
+
+    from repro.distributed import sharding as JSH
+    from repro_torch.distributed import sharding as SH
+
+    amesh = AbstractMesh(tuple(mesh.values()), tuple(mesh))
+    for shape in ("decode_32k", "long_500k"):
+        ok, _, cfg = SHAPES.applicability(get_config(arch), shape)
+        rok, _, rcfg = RSHAPES.applicability(JC.get_config(arch), shape)
+        assert ok == rok
+        if not ok:
+            continue
+        got_caches = SHAPES.input_specs(cfg, shape)["caches"]
+        want_caches = RSHAPES.input_specs(rcfg, shape)["caches"]
+        got = SH.cache_specs(got_caches, mesh)
+        shardings = JSH.cache_shardings(want_caches, amesh)
+        want = [tuple(sh.spec) for sh in jax.tree.leaves(
+            shardings, is_leaf=lambda x: hasattr(x, "spec"))]
+        leaves = jax.tree.leaves(
+            got_caches, is_leaf=lambda x: isinstance(x, torch.Tensor))
+        wleaves = jax.tree.leaves(want_caches)
+        assert got == want, shape
+        mine = sum(_shard_bytes(t.shape, t.numel() * t.element_size(), sp,
+                                mesh) for t, sp in zip(leaves, got))
+        theirs = sum(math.prod(sh.shard_shape(w.shape)) * w.dtype.itemsize
+                     for w, sh in zip(wleaves, jax.tree.leaves(
+                         shardings, is_leaf=lambda x: hasattr(x, "spec"))))
+        assert mine == theirs > 0, shape
+
+
+@pytest.mark.parametrize("arch,shape", [("tinyllama-1.1b", "decode_32k"),
+                                        ("rwkv6-3b", "long_500k")])
+def test_dry_run_decode_holds_the_reference_cache_shard(arch, shape):
+    """The production dry run's decode donates this rank's cache shard:
+    its ``alias_bytes`` equal the bytes the reference's
+    ``cache_shardings`` put on one device of the (16, 16) mesh (tinyllama:
+    8 rows of 32768 over 4 KV heads, ``head_dim`` sharded, 0.34 GiB;
+    rwkv6-3b: the one row of ``long_500k`` on every data rank)."""
+    import jax
+    from jax.sharding import AbstractMesh
+
+    from repro.distributed import sharding as JSH
+
+    _, _, rcfg = RSHAPES.applicability(JC.get_config(arch), shape)
+    caches = RSHAPES.input_specs(rcfg, shape)["caches"]
+    shardings = JSH.cache_shardings(caches, AbstractMesh((16, 16),
+                                                         ("data", "model")))
+    want = sum(math.prod(sh.shard_shape(w.shape)) * w.dtype.itemsize
+               for w, sh in zip(jax.tree.leaves(caches), jax.tree.leaves(
+                   shardings, is_leaf=lambda x: hasattr(x, "spec"))))
+    res = DR.dryrun_one(arch, shape, verbose=False)
+    assert res["memory"]["alias_bytes"] == want
+    assert res["collectives"]["per_op"]["all-gather"]["by_group"][16]
+
+
+# ------------------------------------------------------------------- sweep
+def _sweep(args, out):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.sweep", *args, "--out",
+         str(out)], cwd=ROOT, env=ENV, capture_output=True, text=True,
+        timeout=600)
+
+
+def test_sweep_runs_skips_and_records_a_failure(tmp_path):
+    """``python -m repro_torch.launch.sweep`` (the reference's CLI): a
+    reduced combination (reduced tinyllama-1.1b at ``long_500k`` on the
+    fake (16, 16) world, each combination a subprocess of its own) writes
+    the dry run's JSON with its attempts and host seconds; one that does
+    not apply writes the verdict and prints SKIP; ``--skip-existing``
+    passes over written ones; an unknown arch fails every attempt, is
+    written as an error record and makes the sweep exit 1."""
+    ok = _sweep(["--arch", "tinyllama-1.1b-reduced,deepseek-v2-236b",
+                 "--shape", "long_500k", "--meshes", "single"], tmp_path)
+    assert ok.returncode == 0, ok.stdout[-3000:] + ok.stderr[-3000:]
+    run = json.loads((tmp_path / "tinyllama-1.1b-reduced__long_500k__"
+                      "pod16x16.json").read_text())
+    assert run["applicable"] and run["kind"] == "decode"
+    assert run["attempts"] == 1 and run["host_s"] > 0
+    assert run["mesh"] == "pod16x16" and run["memory"]["alias_bytes"] > 0
+    skip = json.loads((tmp_path / "deepseek-v2-236b__long_500k__"
+                       "pod16x16.json").read_text())
+    assert skip["applicable"] is False
+    assert "deepseek-v2-236b__long_500k__pod16x16: SKIP" in ok.stdout
+    again = _sweep(["--arch", "deepseek-v2-236b", "--shape", "long_500k",
+                    "--meshes", "single", "--skip-existing"], tmp_path)
+    assert again.returncode == 0 and "(exists)" in again.stdout
+    bad = _sweep(["--arch", "no-such-arch", "--shape", "decode_32k",
+                  "--meshes", "single"], tmp_path)
+    assert bad.returncode == 1
+    assert "FAIL no-such-arch__decode_32k__pod16x16" in bad.stdout
+    assert bad.stdout.count("retry") == 3
+    err = json.loads((tmp_path / "no-such-arch__decode_32k__pod16x16.json")
+                     .read_text())
+    assert "unknown arch" in err["error"] and err["mesh"] == "pod16x16"

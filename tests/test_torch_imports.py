@@ -48,7 +48,8 @@ for name in ("repro_torch.serving.plan", "repro_torch.examples.quickstart",
              "repro_torch.configs", "repro_torch.data.pipeline",
              "repro_torch.plan.facade", "repro_torch.core.trace",
              "repro_torch.launch.train", "repro_torch.models.recurrent",
-             "repro_torch.launch.shapes", "repro_torch.launch.dryrun"):
+             "repro_torch.launch.shapes", "repro_torch.launch.dryrun",
+             "repro_torch.launch.sweep"):
     assert name in names, name
 print(len(names))
 """
