@@ -284,6 +284,35 @@ Phases, each of which stops the run with a nonzero exit on failure:
       card's ``max_memory_allocated`` beside the dry run's argument +
       temp, within ``MEM_POINT_GAP``.
     Within ``SERVE_TP_LIMIT_S``, the serving checks' seconds counted in.
+(ab) the example twins (``repro_torch.examples``):
+    - search_and_enact at full width: at the script's start a process on
+      a core of its own at nice 19 searches full qwen2-0.5b
+      (``SE.search``, ``ENACT_CLUSTER``, ``ENACT_STREAMS`` streams, 4
+      devices, at most ``ENACT_MAX_STEPS`` steps), saves and loads the
+      Plan (an exact round trip) and counts the collectives of one rank's
+      ``ddp_tp`` step on a fake (4, 2) world under per-tensor syncing and
+      under the Plan; the phase asserts the data group's counts are what
+      the Plan's buckets imply and the model group's equal, holds the
+      step's sync kernels to their plain versions at its shapes, and runs
+      one step of the loaded Plan on a one-rank NCCL (1, 1) mesh
+      (``SE.enact``): sync launches and collectives as the Plan implies,
+      a finite loss;
+    - the train_lm twin at its defaults (reduced qwen2-0.5b, 200 steps,
+      ``--strategy auto``): launches and collectives as its Plan implies,
+      the loss at the last log below the first;
+    - the serve_decode twin's CLI at its defaults (one flash launch a
+      layer);
+    - on held weights: serve_decode's loop on full tinyllama-1.1b (after
+      (aa)'s check) and full rwkv6-3b (after its serving phase), 8 prompts
+      of 32 and 64 new tokens, one prefill's kernel launches asserted
+      (flash 22, WKV-6 32), logits against a kernel-free prefill and
+      ``DECODE_CHECK_STEPS`` steps fed the same tokens within the cell's
+      tolerance, the greedy picks counted; and the int8 KV cache under
+      ``tp=`` on a one-rank NCCL (1, 1) mesh, ``A8_STEPS`` steps from a
+      sharded ``init_cache`` of ``A8_ROWS`` x ``A8_CACHE``, logits,
+      entries and scales bit for bit equal to dp's.
+    Within ``EXAMPLES_LIMIT_S``, the checks on held weights counted in.
+    The counters are zeroed just before each run and read just after.
 Then the total seconds and the card's name and power limit again, a JSON
 line of every kernel's numbers, and the device line last.
 
@@ -322,9 +351,13 @@ from repro_torch.core import (DOT, OPAQUE, OracleEstimator,  # noqa: E402
 from repro_torch.core import gnn as GNN  # noqa: E402
 from repro_torch.core import profile as PROF  # noqa: E402
 from repro_torch.core.hw import H100_SXM  # noqa: E402
+from repro_torch.data.pipeline import materialize_batch  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.distributed import tensor_parallel as TPAR  # noqa: E402
 from repro_torch.distributed import train_step as TS  # noqa: E402
+from repro_torch.examples import search_and_enact as SE  # noqa: E402
+from repro_torch.examples import serve_decode as SD  # noqa: E402
+from repro_torch.examples import train_lm as TLM  # noqa: E402
 from repro_torch.kernels import build, ops as K, ref as R  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.launch import dryrun as DRY  # noqa: E402
@@ -436,6 +469,17 @@ SERVE_TP_STEPS = 16
 MEM_DECODE_ROWS, MEM_PREFILL_ROWS, MEM_SEQ = 8, 2, 32768
 MEM_POINT_GAP = 0.05
 SERVE_TP_LIMIT_S = 150.0
+# phase (ab): the example twins.  search_and_enact at full width: the
+# arch, the cluster and streams of its search, the search's step bound;
+# serve_decode at full width: rows, prompt and new tokens (the CLI's
+# defaults), and the steps of the kernel-free run each full-width decode
+# is held to; the int8 cache under tp: rows, cache and decode steps; the
+# most seconds the phase may take, its checks on held weights counted in
+ENACT_ARCH, ENACT_CLUSTER, ENACT_STREAMS, ENACT_MAX_STEPS = (
+    "qwen2-0.5b", "a100_nvlink_ib", 4, 40)
+DECODE_ROWS, DECODE_PROMPT, DECODE_NEW, DECODE_CHECK_STEPS = 8, 32, 64, 8
+A8_ROWS, A8_CACHE, A8_STEPS = 8, 4096, 16
+EXAMPLES_LIMIT_S = 150.0
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -3529,6 +3573,369 @@ def phase_dryrun(dev, art: str, dry: list) -> int:
     return launches
 
 
+# ------------------------------------------------------------ phase (ab)
+# search_and_enact's Search Phase and collective counts at full width, run
+# on the host beside the card phases in a process of their own (this
+# script imported for its constants): the searched Plan saved and loaded
+# back (an exact round trip), and each strategy's collectives on the fake
+# (4, 2) world by group, data (4 ranks) and model (2)
+_ENACT = r"""
+import json, sys, time
+import chip_smoke as CS
+cfg = CS.get_config(CS.ENACT_ARCH)
+t0 = time.time()
+plan = CS.SE.search(cfg, cluster=CS.ENACT_CLUSTER, streams=CS.ENACT_STREAMS,
+                    max_steps=CS.ENACT_MAX_STEPS, reduced=False)
+search_s = time.time() - t0
+loaded = CS.SE.save_and_load(plan, sys.argv[1] + ".plan.json")
+leaves = CS.SE.meta_leaves(cfg)
+counts = {}
+t0 = time.time()
+for name, strat in (("per-tensor", CS.TS.GradSyncStrategy.per_tensor(leaves)),
+                    ("plan", loaded.grad_sync(leaves))):
+    coll = CS.SE.count_collectives(cfg, strat)
+    counts[name] = {g: CS.SE.by_group(coll, CS.SE.MESH[g])
+                    for g in ("data", "model")}
+prov = plan.provenance
+json.dump({"search_s": search_s, "count_s": time.time() - t0,
+           "fingerprint": loaded.fingerprint(), "steps": prov["steps"],
+           "simulations": prov["simulations"],
+           "cost_ms": [prov["initial_cost"] * 1e3, prov["best_cost"] * 1e3],
+           "describe": {k: {str(a): b for a, b in v.items()}
+                        if isinstance(v, dict) else v
+                        for k, v in plan.describe().items()},
+           "counts": counts}, open(sys.argv[1], "w"))
+"""
+
+
+def start_enact_search(out: str) -> tuple:
+    """Start :data:`_ENACT` on the host beside the other host processes,
+    on a core of its own at the lowest priority, writing
+    ``out/enact.json`` and the Plan beside it.  Returns ``(process,
+    start)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, here]),
+               OMP_NUM_THREADS="1")
+    cores = sorted(os.sched_getaffinity(0))
+    with open(os.path.join(out, "enact.log"), "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", _ENACT,
+                                 os.path.join(out, "enact.json")],
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+    os.sched_setaffinity(proc.pid, {cores[-1 - (len(DRYRUNS) + 2)
+                                           % len(cores)]})
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+    return proc, time.time()
+
+
+def _staging_checks(dev, strat, leaves) -> float:
+    """Each sync kernel the enacted step runs, against its plain version,
+    bitwise, bucket by bucket as ``sync_grads`` stages ``strat`` at dp=1,
+    on random gradients shaped like ``leaves``: a fused bucket's pack and
+    unpack, an unfused one's bucket pack and its cast back, and the
+    clip's f32 upcast of each bf16 gradient.  Returns the largest
+    error."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in leaves]
+    err = 0.0
+    for bi, b in enumerate(strat.buckets):
+        ls = [grads[i] for i in b]
+        total = sum(l.numel() for l in ls)
+        k = min(strat.chunk_count(bi), total)
+        if strat.is_fused(bi):
+            parts = K.fused_pack(ls, total, 1, k)
+            err = max(err, check_equal(f"fused_pack bucket {bi}", parts,
+                                       R.fused_pack_ref(ls, total, 1, k)))
+            cuts = R.chunk_cuts(total, k)
+            flat = torch.cat([p[:cuts[c + 1] - cuts[c]]
+                              for c, p in enumerate(parts)])
+            shapes, dtypes = [l.shape for l in ls], [l.dtype for l in ls]
+            err = max(err, check_equal(
+                f"fused_unpack bucket {bi}",
+                K.fused_unpack(parts, shapes, dtypes),
+                R.fused_unpack_ref(flat, shapes, dtypes)))
+            continue
+        f32 = K.bucket_pack(ls, total, torch.float32)
+        err = max(err, check_equal(
+            f"bucket_pack bucket {bi}", [f32],
+            [R.bucket_pack_ref(ls, total, torch.float32)]))
+        if all(l.dtype == torch.bfloat16 for l in ls):
+            err = max(err, check_equal(
+                f"convert_copy bucket {bi}",
+                [K.convert_copy(f32, torch.bfloat16)],
+                [R.convert_copy_ref(f32, torch.bfloat16)]))
+    for g in grads:
+        if g.dtype == torch.bfloat16:
+            err = max(err, check_equal(
+                "convert_copy", [K.convert_copy(g, torch.float32)],
+                [R.convert_copy_ref(g, torch.float32)]))
+    del grads
+    torch.cuda.empty_cache()
+    return err
+
+
+def _enact_full(dev, art: str, bg: tuple, deadline: float) -> dict:
+    """search_and_enact at full width: the host process's searched Plan
+    (waited for until ``deadline``) loaded, its collectives on the fake
+    (4, 2) world against per-tensor's and what its buckets imply; the
+    sync kernels of its step held to their plain versions at its shapes;
+    one step of it on a one-rank NCCL (1, 1) mesh (``SE.enact``), the
+    counters zeroed just before and read just after: each sync kernel and
+    collective as often as the Plan implies, no serving kernel, a finite
+    loss.  Returns the step's launches and the kernels' largest error."""
+    proc, start = bg
+    proc.wait(timeout=max(deadline - time.time(), 1.0))
+    path = os.path.join(art, "enact.json")
+    if proc.returncode != 0:
+        log = open(os.path.join(art, "enact.log")).read()
+        raise AssertionError(f"search_and_enact's search exited "
+                             f"{proc.returncode}:\n{log[-3000:]}")
+    res = json.load(open(path))
+    cfg = get_config(ENACT_ARCH)
+    loaded = RP.Plan.load(path + ".plan.json")
+    if loaded.fingerprint() != res["fingerprint"]:
+        raise AssertionError("search_and_enact: the saved Plan changed")
+    leaves = SE.meta_leaves(cfg)
+    strat = loaded.grad_sync(leaves)
+    implied = SE.implied_data_counts(strat, leaves)
+    counts = res["counts"]
+    print(f"search_and_enact {ENACT_ARCH} at full width "
+          f"({sum(p.numel() for p in leaves) / 1e9:.3f}B parameters in "
+          f"{len(leaves)} leaves): searched on {ENACT_CLUSTER} with "
+          f"{ENACT_STREAMS} streams for 4 devices in {res['search_s']:.1f} s "
+          f"({res['steps']} steps, {res['simulations']} simulations; "
+          f"simulated {res['cost_ms'][0]:.3f} -> {res['cost_ms'][1]:.3f} "
+          f"ms; {res['describe']}), on a host core at nice 19 from the "
+          f"script's start; the Plan round-trips [{res['fingerprint']}]")
+    print(f"search_and_enact collectives of one rank's ddp_tp step on a "
+          f"fake (4, 2) world at batch 8 x 64 ({res['count_s']:.1f} s on "
+          f"the host for both): data group per-tensor "
+          f"{counts['per-tensor']['data']}, DisCo {counts['plan']['data']} "
+          f"(the Plan implies {implied}); model group per-tensor "
+          f"{counts['per-tensor']['model']}, DisCo "
+          f"{counts['plan']['model']}")
+    if counts["plan"]["data"] != implied or \
+            counts["plan"]["model"] != counts["per-tensor"]["model"] or \
+            implied["all-reduce"] > counts["per-tensor"]["data"][
+                "all-reduce"]:
+        raise AssertionError(f"search_and_enact: collectives {counts}, the "
+                             f"Plan implies {implied} on the data group")
+    err = _staging_checks(dev, strat, leaves)
+    want, calls = implied_counts(strat, leaves, 1)
+    K.reset_launches()
+    TS.reset_collectives()
+    step = SE.enact(cfg, strat, dev)
+    launches = {name: getattr(K, name).launches for name in want}
+    serving = {name: getattr(K, name).launches
+               for name in ("flash_attention", "rglru_scan", "rwkv6_wkv")}
+    coll = dict(TS.COLLECTIVES)
+    print(f"search_and_enact: one step of the loaded Plan on a one-rank "
+          f"NCCL (1, 1) mesh, batch 8 x 64: loss {step['loss']:.4f}, grad "
+          f"norm {step['grad_norm']:.4f}, {step['step_s'] * 1e3:.1f} ms "
+          f"(host clock, synced; the first step); launches {launches}, "
+          f"collectives {coll} (the Plan implies {want}, {calls}); the "
+          f"staging kernels bitwise equal to their plain versions at its "
+          f"shapes; card {card_line()}")
+    if launches != want or coll != calls or any(serving.values()) or \
+            not math.isfinite(step["loss"]):
+        raise AssertionError(f"search_and_enact step: launches {launches}, "
+                             f"collectives {coll}, serving {serving}, loss "
+                             f"{step['loss']}; the Plan implies {want}, "
+                             f"{calls}")
+    return {"launches": launches, "err": err}
+
+
+def _train_lm() -> dict:
+    """The train_lm twin at its defaults (reduced qwen2-0.5b, 200 steps of
+    16 x 64, ``--strategy auto``), the counters zeroed just before and
+    read just after: the sync kernels as often as its Plan implies, the
+    loss at the last log below the first.  Returns the launches."""
+    cfg = get_config(ENACT_ARCH).reduced()
+    K.reset_launches()
+    TS.reset_collectives()
+    t0 = time.time()
+    out = TLM.main([])
+    secs = time.time() - t0
+    leaves = ST.leaves(meta_params(cfg))
+    want, calls = implied_counts(out["plan"].grad_sync(leaves), leaves,
+                                 len(out["losses"]))
+    launches = {name: getattr(K, name).launches for name in want}
+    coll = dict(TS.COLLECTIVES)
+    losses = out["losses"]
+    print(f"train_lm (reduced {ENACT_ARCH}, {len(losses)} steps of 16 x 64, "
+          f"--strategy auto): {secs:.1f} s in all, step "
+          f"{statistics.median(out['step_seconds'][1:]) * 1e3:.2f} ms "
+          f"(median, host clock, synced); loss {losses[0]:.4f} at the "
+          f"first log, {losses[-1]:.4f} at the last; launches {launches}, "
+          f"collectives {coll} (the Plan implies {want}, {calls})")
+    if launches != want or coll != calls or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm: launches {launches}, collectives "
+                             f"{coll}, losses {losses[0]} -> {losses[-1]}")
+    return launches
+
+
+def _serve_decode_cli() -> int:
+    """The serve_decode twin's CLI at its defaults (reduced tinyllama-1.1b,
+    8 prompts of 32, 64 new tokens; prefill through flash), the counters
+    zeroed just before and read just after: one flash launch a layer.
+    Returns the flash launches."""
+    n = get_config(ARCH).reduced().n_layers
+    K.reset_launches()
+    out = SD.main([])
+    flash = K.flash_attention.launches
+    if flash != n or tuple(out["tokens"].shape) != (8, 65):
+        raise AssertionError(f"serve_decode CLI: flash {flash} (want {n}), "
+                             f"tokens {tuple(out['tokens'].shape)}")
+    return flash
+
+
+def phase_decode_check(dev, params, cfg, cell: Serving) -> dict:
+    """Part of phase (ab), on the full-width weights a serving phase holds:
+    serve_decode's loop (``SD.decode``: ``DECODE_ROWS`` prompts of
+    ``DECODE_PROMPT``, ``DECODE_NEW`` greedy steps, the prefill through the
+    kernels, after a warm-up prefill), the counters zeroed just before
+    and read just after (one prefill: one flash, RG-LRU or WKV-6 launch a
+    layer of that kind);
+    then a kernel-free prefill and ``DECODE_CHECK_STEPS`` steps fed the
+    kernel run's tokens: logits within the cell's bf16 tolerance at every
+    step, the greedy picks counted.  Returns the launches, seconds and
+    timings."""
+    t_start = time.time()
+    kernels = ("flash_attention", "rglru_scan", "rwkv6_wkv")
+    # a prefill of the same prompts first, so the timed one meets no
+    # first call's set-up
+    SD.decode(cfg, dev, batch=DECODE_ROWS, prompt_len=DECODE_PROMPT,
+              new_tokens=0, params=params)
+    K.reset_launches()
+    out = SD.decode(cfg, dev, batch=DECODE_ROWS, prompt_len=DECODE_PROMPT,
+                    new_tokens=DECODE_NEW, params=params)
+    launches = {k: getattr(K, k).launches for k in kernels}
+    kinds = [cfg.block_kind(li) for li in range(cfg.n_layers)]
+    want = {"flash_attention": kinds.count("attn"),
+            "rglru_scan": kinds.count("rec"),
+            "rwkv6_wkv": kinds.count("rwkv")}
+    toks = out["tokens"]
+    prompts = materialize_batch(cfg, DECODE_ROWS, DECODE_PROMPT,
+                                device=dev)["tokens"]
+    with torch.no_grad():
+        lp, caches = ST.prefill(params, cfg, prompts,
+                                DECODE_PROMPT + DECODE_NEW)
+        plain = [lp]
+        for t in range(DECODE_CHECK_STEPS):
+            lp, caches = ST.decode_step(params, cfg, caches, toks[:, t],
+                                        DECODE_PROMPT + t)
+            plain.append(lp)
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(out["logits"], plain))
+    same = sum(int((toks[:, t] == p.argmax(-1)).sum())
+               for t, p in enumerate(plain))
+    picks = len(plain) * DECODE_ROWS
+    step_ms = out["decode_s"] / DECODE_NEW * 1e3
+    print(f"serve_decode {cfg.name} at full width ({DECODE_ROWS} prompts of "
+          f"{DECODE_PROMPT}, {DECODE_NEW} new tokens): prefill "
+          f"{out['prefill_s'] * 1e3:.2f} ms, {step_ms:.2f} ms a step, "
+          f"{DECODE_ROWS * DECODE_NEW / out['decode_s']:.0f} tokens/s (host "
+          f"clock, synced); launches "
+          f"{launches} (one prefill implies {want}); against a kernel-free "
+          f"prefill and {DECODE_CHECK_STEPS} steps fed the same tokens: max "
+          f"|logit diff| {diff:.4e} (tolerance {cell.logit_tol}), greedy "
+          f"picks equal {same} of {picks}; continuation of row 0 "
+          f"{toks[0, :16].tolist()}; card {card_line()}")
+    if launches != want or diff > cell.logit_tol or \
+            not bool(torch.isfinite(out["logits"][-1]).all()):
+        raise AssertionError(f"serve_decode {cfg.name}: launches {launches} "
+                             f"(want {want}), logits {diff}")
+    return {"arch": cfg.name, "launches": launches,
+            "seconds": time.time() - t_start, "same": (same, picks),
+            "prefill_ms": out["prefill_s"] * 1e3, "step_ms": step_ms}
+
+
+def phase_int8_tp(dev, params, cfg) -> dict:
+    """Part of phase (ab), on full tinyllama-1.1b's held weights: the int8
+    KV cache under ``tp=`` (a one-rank NCCL (1, 1) mesh), ``A8_STEPS``
+    decode steps from a sharded ``init_cache`` of ``A8_ROWS`` x
+    ``A8_CACHE`` on seeded tokens, against the same steps without ``tp``:
+    logits, int8 entries and scales bit for bit equal.  Returns the
+    seconds and each run's ms a step."""
+    t_start = time.time()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    toks = torch.from_numpy(np.random.default_rng(28).integers(
+        0, cfg.vocab, (A8_STEPS, A8_ROWS))).to(dev)
+    created = TRAIN.init_process_group(dev)
+    try:
+        tp = TPAR.TPContext(cfg8, make_debug_mesh((1, 1),
+                                                  device="cuda").model)
+        # the model group's NCCL communicator set up before any timing
+        tp.all_reduce(torch.zeros((), device=dev))
+        runs = {}
+        for name, kw in (("dp", {}), ("tp", {"tp": tp})):
+            caches = ST.init_cache(cfg8, A8_ROWS, A8_CACHE, device=dev)
+            if kw:
+                caches = TPAR.shard_caches(caches, tp)
+            logits = []
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(A8_STEPS):
+                    lg, caches = ST.decode_step(params, cfg8, caches,
+                                                toks[t], t, **kw)
+                    logits.append(lg)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / A8_STEPS * 1e3
+            if kw:
+                caches = TPAR.gather_caches(caches, tp)
+            runs[name] = (logits, caches, ms)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    (ld, cd, ms_dp), (lt, ct, ms_tp) = runs["dp"], runs["tp"]
+    same_logits = all(torch.equal(bits(a), bits(b)) for a, b in zip(ld, lt))
+    same_cache = all(torch.equal(a, b) for a, b in
+                     zip(T.leaves(cd), T.leaves(ct)))
+    names = sorted({p.rsplit("[", 1)[-1].strip("']")
+                    for p, _ in T.leaves_with_paths(ct)})
+    print(f"int8 KV cache under tp, {cfg.name} ({A8_ROWS} rows x cache "
+          f"{A8_CACHE}, {A8_STEPS} decode steps from a sharded init_cache "
+          f"on a one-rank NCCL (1, 1) mesh): logits bit for bit equal to "
+          f"dp's {same_logits}, cache leaves {names} equal {same_cache}; "
+          f"{ms_tp:.2f} ms a step against dp's {ms_dp:.2f} (host clock, "
+          f"synced); card {card_line()}")
+    if not (same_logits and same_cache):
+        raise AssertionError(f"int8 under tp: logits equal {same_logits}, "
+                             f"caches equal {same_cache}")
+    return {"seconds": time.time() - t_start, "ms": (ms_tp, ms_dp)}
+
+
+def phase_examples(dev, art: str, bg: tuple, checks: list) -> tuple:
+    """Phase (ab): search_and_enact at full width, the train_lm twin, the
+    serve_decode CLI, and the checks run earlier on held weights
+    (serve_decode at full width, the int8 cache under tp) summed; within
+    ``EXAMPLES_LIMIT_S``.  Returns the phase's launches by kernel and the
+    sync kernels' largest error against their plain versions."""
+    t0 = time.time()
+    enact = _enact_full(dev, art, bg, t0 + EXAMPLES_LIMIT_S / 2)
+    train = _train_lm()
+    flash_cli = _serve_decode_cli()
+    checked = sum(c["seconds"] for c in checks)
+    wall = time.time() - t0 + checked
+    launches = {k: enact["launches"].get(k, 0) + train.get(k, 0)
+                for k in ("convert_copy", "bucket_pack", "fused_pack",
+                          "fused_unpack")}
+    for k in ("flash_attention", "rglru_scan", "rwkv6_wkv"):
+        launches[k] = sum(c.get("launches", {}).get(k, 0) for c in checks)
+    launches["flash_attention"] += flash_cli
+    print(f"phase (ab): {wall:.1f} s (limit {EXAMPLES_LIMIT_S} s), of it "
+          f"{checked:.1f} s in the checks on held weights; launches "
+          f"{launches} (the enacted Plan's step {enact['launches']}, "
+          f"train_lm {train}, serve_decode's CLI flash {flash_cli}, full "
+          f"width {[c.get('launches') for c in checks]}); card "
+          f"{card_line()}")
+    if wall > EXAMPLES_LIMIT_S:
+        raise AssertionError(f"phase (ab) took {wall:.1f} s, over "
+                             f"{EXAMPLES_LIMIT_S} s")
+    return launches, enact["err"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3536,6 +3943,7 @@ def main() -> int:
     art = tempfile.mkdtemp(prefix="chip_smoke_")
     dry = start_dryruns(art)
     bg = start_serving_dryruns(art)
+    bg["enact"] = start_enact_search(art)
     try:
         return run(art, dry, bg)
     finally:
@@ -3585,6 +3993,8 @@ def run(art: str, dry: list, bg: dict) -> int:
                                      {"metrics": m, "peak": peak}, art)
     tp_checks = [phase_serve_tp_check(dev, params, cfg, TINYLLAMA,
                                       max(TINYLLAMA.extra_prompts))]
+    ab_checks = [phase_decode_check(dev, params, cfg, TINYLLAMA),
+                 phase_int8_tp(dev, params, cfg)]
     del params
     torch.cuda.empty_cache()
 
@@ -3604,6 +4014,8 @@ def run(art: str, dry: list, bg: dict) -> int:
         served_by[cell.arch], _, _ = phase_serving(dev, params, cfg, cell)
         tp_checks.append(phase_serve_tp_check(dev, params, cfg, cell,
                                               max(cell.extra_prompts)))
+        if cell is RWKV6:
+            ab_checks.append(phase_decode_check(dev, params, cfg, cell))
         del params
         torch.cuda.empty_cache()
     served_ds = phase_deepseek(dev, tp_checks)
@@ -3624,6 +4036,9 @@ def run(art: str, dry: list, bg: dict) -> int:
     zero3_convert = phase_dryrun(dev, art, dry)
     launches["convert_copy"] += zero3_convert
     phase_serve_tp(dev, art, bg, tp_checks)
+    ab, ab_err = phase_examples(dev, art, bg["enact"], ab_checks)
+    res["bucket_pack"]["max_abs_err"] = max(
+        res["bucket_pack"]["max_abs_err"], ab_err)
     tp_launches = {k: sum(c["launches"][k] for c in tp_checks)
                    for k in ("flash_attention", "rglru_scan", "rwkv6_wkv")}
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
@@ -3639,21 +4054,25 @@ def run(art: str, dry: list, bg: dict) -> int:
                               + tp_launches["rglru_scan"])
     launches["rwkv6_wkv"] = (served_rwkv["rwkv6_wkv"]
                              + tp_launches["rwkv6_wkv"])
+    for name, n in ab.items():
+        launches[name] += n
     print(f"convert_copy launches: {launches['convert_copy']} "
-          f"({launches['convert_copy'] - zero3_convert} on the training path "
-          f"of (g), {zero3_convert} by the fsdp_tp clip of (z))")
+          f"({launches['convert_copy'] - zero3_convert - ab['convert_copy']}"
+          f" on the training path of (g), {zero3_convert} by the fsdp_tp "
+          f"clip of (z), {ab['convert_copy']} in (ab)); (ab)'s launches "
+          f"{ab}")
     print(f"launches on the serving paths: flash_attention "
           f"{served['flash_attention']} ({ARCH}) + "
           f"{served_rg['flash_attention']} ({RG_ARCH}) + {flash_layers} "
           f"(per-layer prefill) + {served_plan['flash_attention']} "
           f"({ARCH}, serving plan) + {mm_launches[VLM_ARCH]} ({VLM_ARCH} "
           f"prefill) + {mm_launches[ENCDEC_ARCH]} ({ENCDEC_ARCH} prefill) "
-          f"+ {tp_launches['flash_attention']} (tp prefills, (aa)), "
-          f"rglru_scan "
+          f"+ {tp_launches['flash_attention']} (tp prefills, (aa)) + "
+          f"{ab['flash_attention']} (serve_decode, (ab)), rglru_scan "
           f"{served_rg['rglru_scan']} ({RG_ARCH}) + "
           f"{tp_launches['rglru_scan']} (aa), rwkv6_wkv "
           f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH}) + "
-          f"{tp_launches['rwkv6_wkv']} (aa)")
+          f"{tp_launches['rwkv6_wkv']} (aa) + {ab['rwkv6_wkv']} (ab)")
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": res[name]["max_abs_err"],

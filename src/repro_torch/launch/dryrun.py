@@ -258,10 +258,12 @@ def mesh_name(shape: dict) -> str:
 
 
 def build_dryrun_train(cfg, mesh, arch: str, *, specs=None,
-                       grad_accum=None):
+                       grad_accum=None, strategy=None):
     """One rank's step for ``cfg`` on ``mesh`` with its arguments, built
     on fake tensors (call it under ``FakeTensorMode``): ``mode="fsdp_tp"``
-    for ``FSDP_ARCHS``, else ``ddp_tp`` with ``layout="tp"``; remat; the
+    for ``FSDP_ARCHS``, else ``ddp_tp`` with ``layout="tp"``, its
+    gradients synced by ``strategy`` (a ``GradSyncStrategy``; default
+    per tensor, the step's own); remat; the
     global batch of ``specs`` (default ``input_specs(cfg, "train_4k")``),
     of which the step takes this rank's rows; ``grad_accum`` defaulting to
     ``GRAD_ACCUM[arch]`` clamped to the local batch; this rank's shards of
@@ -281,7 +283,7 @@ def build_dryrun_train(cfg, mesh, arch: str, *, specs=None,
     B = specs["tokens"].shape[0]
     accum = grad_accum or min(GRAD_ACCUM.get(arch, 1), B // dp)
     step = build_train_step(cfg, mode=mode, layout="tp", mesh=mesh,
-                            grad_accum=accum, remat=True,
+                            strategy=strategy, grad_accum=accum, remat=True,
                             zero1=arch in ZERO1_ARCHS)
     params = TP.shard_params(ST.init_params(cfg, device="cpu"), step.tp)
     leaves = T.leaves(params)
@@ -300,16 +302,18 @@ def build_dryrun_train(cfg, mesh, arch: str, *, specs=None,
 
 
 def dryrun_train(cfg, mesh, arch: str, *, specs=None,
-                 grad_accum=None) -> dict:
+                 grad_accum=None, strategy=None) -> dict:
     """One whole training step of this rank on fake tensors, on an open
-    (fake or real) world holding ``mesh``: its flops, bytes, memory and
-    collectives, in the reference's keys, and ``fake_step_s``."""
+    (fake or real) world holding ``mesh``, its gradients synced by
+    ``strategy`` (:func:`build_dryrun_train`): its flops, bytes, memory
+    and collectives, in the reference's keys, and ``fake_step_s``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     t0 = time.perf_counter()
     with FakeTensorMode(allow_non_fake_inputs=True):
         step, args, info = build_dryrun_train(cfg, mesh, arch, specs=specs,
-                                              grad_accum=grad_accum)
+                                              grad_accum=grad_accum,
+                                              strategy=strategy)
         with StepCounter() as count:
             step(*args)
     wall = time.perf_counter() - t0

@@ -231,13 +231,7 @@ def attention_fwd(p: dict, cfg: ModelConfig, x, positions, *,
     new_cache = None
     if cache is not None:
         mask, new_cache = _write_cache(cache, k, v, pos, window)
-        if "k_scale" in cache:
-            # the whole cache dequantised every step, as in the reference
-            ck, cv = cache["k"], cache["v"]
-            kd = ck.to(q.dtype) * cache["k_scale"][..., None].to(q.dtype)
-            vd = cv.to(q.dtype) * cache["v_scale"][..., None].to(q.dtype)
-        else:
-            kd, vd = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+        kd, vd = _cache_kv(cache, q.dtype)
         out = sdpa(q, kd, vd, mask[:, None, None, :])
     else:
         out = sdpa(q, k, v, None, use_flash=use_flash, window=window)
@@ -260,13 +254,26 @@ def _fresh_cache(k, v, cache_len: int) -> dict:
     return {"k": ck, "v": cv}
 
 
-def _write_cache(cache: dict, k, v, pos, window):
+def _cache_kv(cache: dict, dt) -> tuple:
+    """The cache's k and v in ``dt``: an int8 cache's entries times their
+    scales, the whole cache dequantised every step, as in the
+    reference."""
+    if "k_scale" not in cache:
+        return cache["k"].to(dt), cache["v"].to(dt)
+    return tuple(cache[n].to(dt) * cache[n + "_scale"][..., None].to(dt)
+                 for n in ("k", "v"))
+
+
+def _write_cache(cache: dict, k, v, pos, window, head_max=None):
     """Decode: write each row's new k and v (B, 1, KV, hd) at its position
     (``pos % size`` in a window's ring buffer), clamped into the cache as
     the reference's ``dynamic_update_slice`` clamps, in place; an int8
     cache gets the entries quantised with symmetric scales per (row,
-    slot, KV head), stored in bf16.  Returns the additive f32 mask (B,
-    size) of the entries each row reads, and the cache."""
+    slot, KV head), stored in bf16.  Where k and v are this rank's slices
+    of ``head_dim``, ``head_max`` (the model group's max) gives each
+    head's whole max, so every rank stores the scale the whole head has.
+    Returns the additive f32 mask (B, size) of the entries each row
+    reads, and the cache."""
     ck, cv = cache["k"], cache["v"]
     B, S = k.shape[:2]
     csize = ck.shape[1]
@@ -275,8 +282,8 @@ def _write_cache(cache: dict, k, v, pos, window):
     slot = slot.clamp(0, csize - S)
     rows = torch.arange(B, device=k.device)
     if "k_scale" in cache:
-        kq, ks = _quantize_int8(k[:, 0])
-        vq, vs = _quantize_int8(v[:, 0])
+        kq, ks = _quantize_int8(k[:, 0], head_max)
+        vq, vs = _quantize_int8(v[:, 0], head_max)
         ck[rows, slot] = kq
         cv[rows, slot] = vq
         cache["k_scale"][rows, slot] = ks.to(cache["k_scale"].dtype)
@@ -326,7 +333,12 @@ def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window, *,
     gathers every query head (the unaligned layout has them all), takes
     the partial scores of its slice in f32, sums them over the group,
     weights its slice of v and gathers the heads' outputs back; the
-    layout's output projection follows (ROADMAP C28).
+    layout's output projection follows (ROADMAP C28).  An int8 cache is
+    dequantised by its scales before the scores in both layouts; on a
+    ``head_dim`` slice each new entry is quantised with its whole head's
+    scale, the slices' max taken over the group (one MAX all-reduce for
+    k and one for v a step), so every rank stores the entries and
+    scales a single device would.
 
     ``plain`` is the attention of the encoder and of the decoder's
     cross-attention (:func:`cross_attention_fwd`): no rope, no bias, no
@@ -403,11 +415,12 @@ def _attention_tp(p: dict, cfg: ModelConfig, x, positions, tp, window, *,
         if tp.cache_dim("k") == 3:
             k, v = tp.local(k, -1), tp.local(v, -1)
         return out, _fresh_cache(k, v, cache_len)
+    sliced = tp.cache_dim("k") == 3
     mask, new_cache = _write_cache(
-        cache, *((tp.local(t, -1) if tp.cache_dim("k") == 3 else t)
-                 for t in (k, v)), pos, window)
-    kd, vd = cache["k"].to(dt), cache["v"].to(dt)
-    if tp.cache_dim("k") != 3:
+        cache, *((tp.local(t, -1) if sliced else t) for t in (k, v)), pos,
+        window, head_max=tp.max if sliced else None)
+    kd, vd = _cache_kv(cache, dt)
+    if not sliced:
         return out_proj(sdpa(q, mine(kd), mine(vd),
                              mask[:, None, None, :])), new_cache
     # this rank's slice of head_dim: partial scores of every query head
@@ -448,11 +461,16 @@ def _row_positions(pos, B: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).reshape(-1).expand(B)
 
 
-def _quantize_int8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _quantize_int8(t: torch.Tensor,
+                   head_max=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over the last dim: (entries, f32 scales), the scale
-    max|t| / 127 and each entry ``t / scale`` rounded half to even."""
+    max|t| / 127 and each entry ``t / scale`` rounded half to even.  With
+    ``head_max``, ``t`` is a slice of the last dim and the max is
+    ``head_max`` of the slice's (the whole dim's, the same bits on every
+    slice)."""
     tf = t.float()
-    scale = tf.abs().amax(-1) / 127.0
+    amax = tf.abs().amax(-1)
+    scale = (amax if head_max is None else head_max(amax)) / 127.0
     q = torch.round(tf / torch.clamp(scale[..., None], min=1e-8))
     return q.to(torch.int8), scale
 

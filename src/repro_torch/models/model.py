@@ -429,14 +429,6 @@ def loss_fn(params, cfg: ModelConfig, batch, *, use_kernels: bool = False,
     return (logz - gold).mean() + aux
 
 
-def _serving_tp(cfg: ModelConfig, tp) -> None:
-    """Refuse what the serving paths do not run under ``tp``."""
-    if tp is not None and cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache under tensor parallelism is not "
-            f"ported (ROADMAP A8); the reference's dry run never builds one")
-
-
 def _layer_params(p, li: int, tp):
     """Layer ``li``'s parameters whole over the data ranks under a ZeRO-3
     ``tp`` (gathered here), else as they are."""
@@ -459,7 +451,6 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     runs on this rank's slices (under ZeRO-3 gathered first, as in
     training), the logits come out whole on every rank of the group and
     each cache is this rank's shard (``tp.cache_dim``)."""
-    _serving_tp(cfg, tp)
     x, positions, _, memory = _inputs(params, cfg, tokens, prefix_emb,
                                       enc_frames, tp)
     caches = []
@@ -484,8 +475,9 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
     reference's ``decode_step`` at batch B, unless ``route_rows`` routes
     each row as a batch of one, as the reference engine's vmapped batch-1
     step does (the capacity then drops no token).  ``tp`` as in
-    :func:`prefill`: ``caches`` hold this rank's shards."""
-    _serving_tp(cfg, tp)
+    :func:`prefill`: ``caches`` hold this rank's shards, an int8 cache's
+    (``init_cache`` under ``kv_cache_dtype="int8"``) too, whose entries
+    and scales each rank writes as a single device would."""
     x, positions, pos = _decode_embed(params, cfg, token, pos, tp)
     out = []
     for li, (p, c) in enumerate(zip(params["layers"], caches)):

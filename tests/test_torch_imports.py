@@ -6,7 +6,8 @@ int8-cache model code, the tensor-parallel layout (the sharding rules,
 the vocab-parallel embedding and cross-entropy and the mesh), the
 encoder-decoder and VLM prefix through the config, registry, data, model,
 facade, tracer and launcher, the recurrent blocks with their WKV-6 scan
-op, and the dry run with its shapes."""
+op, the dry run with its shapes, and the example twins of the
+search -> enact workflow, of training and of batched decoding."""
 import os
 import subprocess
 import sys
@@ -49,7 +50,10 @@ for name in ("repro_torch.serving.plan", "repro_torch.examples.quickstart",
              "repro_torch.plan.facade", "repro_torch.core.trace",
              "repro_torch.launch.train", "repro_torch.models.recurrent",
              "repro_torch.launch.shapes", "repro_torch.launch.dryrun",
-             "repro_torch.launch.sweep"):
+             "repro_torch.launch.sweep",
+             "repro_torch.examples.search_and_enact",
+             "repro_torch.examples.train_lm",
+             "repro_torch.examples.serve_decode"):
     assert name in names, name
 print(len(names))
 """
