@@ -123,7 +123,7 @@ Phases, each of which stops the run with a nonzero exit on failure:
     every baseline of ``evaluate_baselines``; the GNN's Plan is enacted
     through ``train.main --strategy-file`` for 4 steps (finite losses,
     launches and collectives as the Plan implies, the bucket pack bitwise
-    on its unfused buckets, the saved Plan naming ``GNNEstimator``); 192
+    on its unfused buckets, the saved Plan naming ``GNNEstimator``); 96
     tier B fused ops (up to 10 ops on f32 2048 x 2048) are each compiled
     by ``torch.compile`` into one graph and timed on the card, and a GNN
     (the reference's fig9 settings: 3 layers, 60 epochs, batches of 32)
@@ -313,6 +313,34 @@ Phases, each of which stops the run with a nonzero exit on failure:
       entries and scales bit for bit equal to dp's.
     Within ``EXAMPLES_LIMIT_S``, the checks on held weights counted in.
     The counters are zeroed just before each run and read just after.
+(ac) serving deepseek-coder-33b at full width (62 layers, d_model 7168,
+    56 query heads over 8 KV heads at hd 128, d_ff 19200; 33.34B
+    parameters, 66.7 GB in bf16):
+    - flash attention at its prefill shape (q (1,S,56,128), k and v
+      (1,S,8,128), bf16, causal, S in 1, 129 and 2048) checked, timed
+      and reported as in (c), with the tensor-core kernel's registers,
+      spills and shared memory at hd 128; and the 7:1 head mapping at
+      S = 2048, each KV head's v its own index, so every query head h
+      puts out h // 7;
+    - the weights drawn on the card from seed 0, a layer at a time
+      (``by_layer``: no f32 stack; their bytes, the draw's seconds and
+      peak); the reduced model's engine on
+      the card against the CPU;
+    - the 2048-token prompt's prefill with the kernel (62 launches) and 8
+      greedy decode steps against a kernel-free prefill and the same
+      steps fed the same tokens: the largest |logit| difference under the
+      cell's tolerance, the greedy picks that agree;
+    - that prefill timed with and without the kernel and traced; a decode
+      step at 8 slots timed and traced (device busy, idle share, device
+      activities);
+    - ``ServeEngine`` (8 slots, cache 4096) on 19 requests submitted at
+      once, 16 of ``Workload(n_requests=16, prompt_lens=(16, 2048),
+      new_tokens=(32, 64))`` plus prompts of 1, 129 and 2048 tokens,
+      greedy: every request in full, flash once per layer per prefill
+      (62 x 19) on the tensor cores, the counters zeroed just before and
+      read just after; TTFT, TPOT, tokens/s and
+      ``max_memory_allocated`` printed, the peak under the card's memory.
+    Within ``CODER_SERVE_LIMIT_S``.
 Then the total seconds and the card's name and power limit again, a JSON
 line of every kernel's numbers, and the device line last.
 
@@ -414,9 +442,11 @@ B1_BATCH, B1_SEQ, B1_STEPS, B1_CHECK_STEPS = 2, 512, 3, 2
 SEARCH_CLUSTER, SEARCH_LIMIT_S = "h100_superpod", 120.0
 # the estimator phase: tier A fused groups and GNN epochs (the reference's
 # fig11 benchmark), tier B's fused-op count, ops per fused op and width
-# (Fig. 9 --measured), and the most seconds the whole phase may take
+# (Fig. 9 --measured; each compile takes about a second of host time, and
+# the whole script stays well inside its 1200 s), and the most seconds the
+# whole phase may take
 EST_SAMPLES, EST_EPOCHS = 250, 40
-TIER_B_SAMPLES, TIER_B_NODES, TIER_B_DIM = 192, 10, 2048
+TIER_B_SAMPLES, TIER_B_NODES, TIER_B_DIM = 96, 10, 2048
 ESTIMATOR_LIMIT_S = 600.0
 # the per-layer phase: the depths it traces and searches at the training
 # batch, the loss-and-gradient steps it times, and the per-layer model
@@ -480,6 +510,13 @@ ENACT_ARCH, ENACT_CLUSTER, ENACT_STREAMS, ENACT_MAX_STEPS = (
 DECODE_ROWS, DECODE_PROMPT, DECODE_NEW, DECODE_CHECK_STEPS = 8, 32, 64, 8
 A8_ROWS, A8_CACHE, A8_STEPS = 8, 4096, 16
 EXAMPLES_LIMIT_S = 150.0
+# phase (ac): full deepseek-coder-33b served; the flash check lengths of its
+# prefill shape (56 query heads over 8 KV heads at hd 128), the decode
+# steps of its kernel-free check, and the most seconds the phase may take
+CODER_ARCH = "deepseek-coder-33b"
+CODER_FLASH_SEQS = (1, 129, 2048)
+CODER_CHECK_STEPS = 8
+CODER_SERVE_LIMIT_S = 180.0
 B1_PATTERN = ((1, "ar", CHUNKS), (0, "ar", 1), (0, "rs_ag", 3),
               (0, "ar", 3), (0, "rs_ag", 1))
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -592,6 +629,19 @@ DEEPSEEK = Serving(
     DS_ARCH, 4096, (), logit_tol=DS_ROW_LOGIT_TOL, cache_tol=None,
     state_tol=None, reduced_lens=(1, 7, 40, 64, 65),
     workload=TINYLLAMA.workload, extra_prompts=TINYLLAMA.extra_prompts)
+CODER = Serving(
+    CODER_ARCH, 4096, (2048,),
+    # Largest |logit| difference allowed between full deepseek-coder-33b's
+    # prefill of 2048 tokens (and 8 decode steps after it) with the flash
+    # kernel and without it (dense attention), bf16 weights: measured 0.172
+    # at logits up to 6.3 (62 layers of bf16 rounding on either path; H100,
+    # PERF.md section 6).  A wrong mask or head mapping moves logits by
+    # their own scale.
+    logit_tol=0.5, cache_tol=None, state_tol=None,
+    reduced_lens=(1, 7, 40, 64, 65),
+    workload=WL.Workload(n_requests=16, prompt_lens=(16, 2048),
+                         new_tokens=(32, 64), seed=0),
+    extra_prompts=(1, 129, 2048))
 # Kernel against kernel-free prefill with f32 weights, every cell: the
 # largest |difference| allowed in logits and in every cache and state entry.
 # Only the order of f32 sums differs (and flash's f32 probabilities), so a
@@ -3936,6 +3986,158 @@ def phase_examples(dev, art: str, bg: tuple, checks: list) -> tuple:
     return launches, enact["err"]
 
 
+def phase_flash_coder(dev) -> dict:
+    """Part of phase (ac): flash attention at deepseek-coder-33b's prefill
+    shape, q (1,S,56,128) over k and v (1,S,8,128), bf16, causal, at S in
+    ``CODER_FLASH_SEQS`` (1 and 129 off the kernel's 128-key tiles):
+    checked, timed and reported as in (c); then the head mapping at S =
+    2048, with each KV head's v the KV head's index, so every query head
+    h must put out h // 7 at every row (softmax weights sum to one; another
+    KV head's index is at least 1 away, so within 0.25 tells them apart).
+    Returns the numbers at S = 2048 with the largest error."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    cfg = get_config(CODER_ARCH)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    res = {S: _flash_path_shape(
+        f"{CODER_ARCH} bf16 S={S}",
+        *_flash_inputs(gen, dev, S, S, H, KV, hd, torch.bfloat16))
+        for S in CODER_FLASH_SEQS}
+    q, k, _ = _flash_inputs(gen, dev, 2048, 2048, H, KV, hd, torch.bfloat16)
+    v = torch.arange(KV, device=dev, dtype=torch.bfloat16)[
+        None, None, :, None].expand(1, 2048, KV, hd).contiguous()
+    got = K.flash_attention(q, k, v)
+    want = (torch.arange(H, device=dev) // (H // KV)).float()
+    off = (got.float() - want[None, None, :, None]).abs()
+    wrong = int((off > 0.25).sum())
+    print(f"kernel flash_attention {CODER_ARCH} head mapping (S=2048, {H} "
+          f"query heads over {KV} KV heads, each KV head's v its index): "
+          f"{wrong} of {got.numel()} outputs more than 0.25 from h // "
+          f"{H // KV} (max |diff| {float(off.max()):.3e})")
+    if wrong:
+        raise AssertionError(f"flash_attention {CODER_ARCH}: {wrong} "
+                             f"outputs read the wrong KV head")
+    # an empty dict: the library was already built, no log to read
+    if FLASH_TC_PTXAS and ("bf16", hd) not in FLASH_TC_PTXAS:
+        raise AssertionError(f"no ptxas entry for the bf16 hd {hd} "
+                             f"instance in this run's build log")
+    out = dict(res[max(CODER_FLASH_SEQS)])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in res.values())
+    return out
+
+
+def _coder_kernel_free_check(dev, params, cfg) -> dict:
+    """Part of phase (ac), as (ab)'s serve_decode comparison: the 2048-token
+    prompt's prefill through the kernel, then ``CODER_CHECK_STEPS`` greedy
+    decode steps from its cache, against a kernel-free prefill of the same
+    tokens and the same steps fed the kernel run's tokens: the largest
+    |logit| difference over the prefill and every step (under the cell's
+    tolerance) and the greedy picks that agree.  Returns the gap, the
+    picks and the kernel prefill's flash launches."""
+    S = max(CODER.extra_prompts)
+    toks = torch.from_numpy(np.random.default_rng(S).integers(
+        0, cfg.vocab, (1, S))).to(dev)
+    runs = {}
+    for name, kernels in (("kernel", True), ("kernel-free", False)):
+        K.reset_launches()
+        with torch.no_grad():
+            lg, caches = ST.prefill(params, cfg, toks, CODER.cache_len,
+                                    use_kernels=kernels)
+            launches = K.flash_attention.launches
+            logits, picks = [lg], [lg.argmax(-1)]
+            feed = runs["kernel"]["picks"] if name != "kernel" else None
+            for t in range(CODER_CHECK_STEPS):
+                nxt = picks[-1] if feed is None else feed[t]
+                lg, caches = ST.decode_step(params, cfg, caches, nxt, S + t)
+                logits.append(lg)
+                picks.append(lg.argmax(-1))
+        del caches
+        runs[name] = {"logits": logits, "picks": picks,
+                      "launches": launches}
+    kr, fr = runs["kernel"], runs["kernel-free"]
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(kr["logits"], fr["logits"]))
+    same = sum(int((a == b).sum()) for a, b in zip(kr["picks"],
+                                                   fr["picks"]))
+    scale = float(fr["logits"][0].float().abs().max())
+    print(f"{CODER_ARCH} prefill of {S} tokens with flash ({kr['launches']} "
+          f"launches) against without it ({fr['launches']}), then "
+          f"{CODER_CHECK_STEPS} decode steps fed the kernel run's tokens: max "
+          f"|logit diff| {diff:.4e} at max |logit| {scale:.3f} (tolerance "
+          f"{CODER.logit_tol}), greedy picks equal {same} of "
+          f"{len(kr['picks'])}; card {card_line()}")
+    if (kr["launches"], fr["launches"]) != (cfg.n_layers, 0):
+        raise AssertionError(f"{CODER_ARCH} check prefills launched flash "
+                             f"{kr['launches']} and {fr['launches']} times")
+    if not diff <= CODER.logit_tol or not all(
+            bool(torch.isfinite(x).all()) for x in kr["logits"]):
+        raise AssertionError(f"{CODER_ARCH}: kernel prefill differs from "
+                             f"kernel-free by {diff} > {CODER.logit_tol}")
+    return {"diff": diff, "same": (same, len(kr["picks"])),
+            "launches": kr["launches"]}
+
+
+def phase_coder(dev) -> tuple:
+    """Phase (ac): full deepseek-coder-33b served on the card.  Flash at
+    its prefill shape (:func:`phase_flash_coder`); the weights drawn on
+    the card (seed 0, one layer at a time); the reduced model's engine on
+    the card against the CPU; the kernel-free check; the 2048-token
+    prefill timed with and without the kernel and traced; a decode step
+    timed and traced; then the cell's 19 requests through ``ServeEngine``
+    (every request in full, flash 62 times a prefill on the tensor
+    cores).  Within ``CODER_SERVE_LIMIT_S``.  Returns flash's numbers at
+    the prefill shape, the serving run's launches and the check's flash
+    launches."""
+    t0 = time.time()
+    cfg = get_config(CODER_ARCH)
+    flash = phase_flash_coder(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True,
+                            by_layer=True)
+    torch.cuda.synchronize()
+    leaves = ST.leaves(params)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves)
+    print(f"{CODER_ARCH}: {sum(p.numel() for p in leaves) / 1e9:.4f}B "
+          f"parameters in {len(leaves)} leaves, {nbytes / 1e9:.3f} GB "
+          f"({nbytes / 2**30:.2f} GiB; dtypes "
+          f"{sorted({str(p.dtype) for p in leaves})}) drawn on the card in "
+          f"{time.time() - t1:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_reduced_engine(dev, cfg, CODER)
+    check = _coder_kernel_free_check(dev, params, cfg)
+    toks = torch.from_numpy(np.random.default_rng(2048).integers(
+        0, cfg.vocab, (1, max(CODER.extra_prompts)))).to(dev)
+    for use_kernels in (True, False):
+        times = []
+        for _ in range(3):
+            with torch.no_grad():
+                _, dt = _synced_s(lambda: ST.prefill(
+                    params, cfg, toks, CODER.cache_len,
+                    use_kernels=use_kernels))
+            times.append(dt)
+        print(f"prefill {CODER_ARCH} {toks.shape[1]} tokens, use_kernels="
+              f"{use_kernels}: {statistics.median(times) * 1e3:.1f} ms "
+              f"(median of 3, host clock, synced)")
+    phase_prefill_trace(params, cfg, toks, CODER.cache_len)
+    phase_decode_trace(dev, params, cfg, CODER.cache_len)
+    torch.cuda.empty_cache()
+    served, _, peak = phase_serving(dev, params, cfg, CODER)
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    del params
+    torch.cuda.empty_cache()
+    wall = time.time() - t0
+    print(f"phase (ac): {wall:.1f} s (limit {CODER_SERVE_LIMIT_S} s); "
+          f"serving peak {peak / 2**30:.2f} GiB of the card's "
+          f"{cap / 2**30:.2f} GiB; card {card_line()}")
+    if peak >= cap:
+        raise AssertionError(f"phase (ac): peak {peak} >= {cap}")
+    if wall > CODER_SERVE_LIMIT_S:
+        raise AssertionError(f"phase (ac) took {wall:.1f} s, over "
+                             f"{CODER_SERVE_LIMIT_S} s")
+    return flash, served, check["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4039,6 +4241,9 @@ def run(art: str, dry: list, bg: dict) -> int:
     ab, ab_err = phase_examples(dev, art, bg["enact"], ab_checks)
     res["bucket_pack"]["max_abs_err"] = max(
         res["bucket_pack"]["max_abs_err"], ab_err)
+    coder_flash, served_coder, coder_check = phase_coder(dev)
+    res["flash_attention"]["max_abs_err"] = max(
+        res["flash_attention"]["max_abs_err"], coder_flash["max_abs_err"])
     tp_launches = {k: sum(c["launches"][k] for c in tp_checks)
                    for k in ("flash_attention", "rglru_scan", "rwkv6_wkv")}
     served_rg, served_rwkv = served_by[RG_ARCH], served_by[RWKV_ARCH]
@@ -4049,7 +4254,8 @@ def run(art: str, dry: list, bg: dict) -> int:
                                    + flash_layers
                                    + served_plan["flash_attention"]
                                    + sum(mm_launches.values())
-                                   + tp_launches["flash_attention"])
+                                   + tp_launches["flash_attention"]
+                                   + served_coder["flash_attention"])
     launches["rglru_scan"] = (served_rg["rglru_scan"]
                               + tp_launches["rglru_scan"])
     launches["rwkv6_wkv"] = (served_rwkv["rwkv6_wkv"]
@@ -4068,7 +4274,9 @@ def run(art: str, dry: list, bg: dict) -> int:
           f"({ARCH}, serving plan) + {mm_launches[VLM_ARCH]} ({VLM_ARCH} "
           f"prefill) + {mm_launches[ENCDEC_ARCH]} ({ENCDEC_ARCH} prefill) "
           f"+ {tp_launches['flash_attention']} (tp prefills, (aa)) + "
-          f"{ab['flash_attention']} (serve_decode, (ab)), rglru_scan "
+          f"{ab['flash_attention']} (serve_decode, (ab)) + "
+          f"{served_coder['flash_attention']} ({CODER_ARCH}, (ac); its "
+          f"kernel-free check's prefill {coder_check} more), rglru_scan "
           f"{served_rg['rglru_scan']} ({RG_ARCH}) + "
           f"{tp_launches['rglru_scan']} (aa), rwkv6_wkv "
           f"{served_rwkv['rwkv6_wkv']} ({RWKV_ARCH}) + "

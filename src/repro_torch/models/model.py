@@ -257,9 +257,17 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> list:
-    """Per-layer zero decode state, as in the reference: an ``attn`` block
-    holds ``{"k", "v"}`` of (batch, size, KV, hd) in ``cfg.dtype``, with
-    size ``min(cache_len, window)`` for a sliding window; with
+    """Per-layer zero decode state, as in the reference: one
+    :func:`init_layer_cache` per layer."""
+    return [init_layer_cache(cfg, li, batch, cache_len, device)
+            for li in range(cfg.n_layers)]
+
+
+def init_layer_cache(cfg: ModelConfig, li: int, batch: int, cache_len: int,
+                     device="cuda") -> dict:
+    """Layer ``li``'s zero decode state: an ``attn`` block holds ``{"k",
+    "v"}`` of (batch, size, KV, hd) in ``cfg.dtype``, with size
+    ``min(cache_len, window)`` for a sliding window; with
     ``kv_cache_dtype == "int8"``, int8 ``k`` and ``v`` and bf16 ``k_scale``
     and ``v_scale`` of (batch, size, KV); an MLA block ``{"c_kv": (batch,
     cache_len, kv_lora_rank), "k_rope": (batch, cache_len,
@@ -268,49 +276,31 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     ``rwkv`` block ``{"tmix": {"wkv": (batch, H, hd, hd) f32, "prev":
     (batch, D)}, "cmix": {"prev": (batch, D)}}``, ``prev`` in cfg.dtype."""
     dt = getattr(torch, cfg.dtype)
-    caches = []
-    for li in range(cfg.n_layers):
-        if cfg.block_kind(li) == "rwkv":
-            wkv = (batch, cfg.n_heads, cfg.hd, cfg.hd)
-            prev = (batch, cfg.d_model)
-            caches.append({
-                "tmix": {"wkv": torch.zeros(wkv, dtype=torch.float32,
-                                            device=device),
-                         "prev": torch.zeros(prev, dtype=dt, device=device)},
-                "cmix": {"prev": torch.zeros(prev, dtype=dt,
-                                             device=device)}})
-            continue
-        if cfg.block_kind(li) == "rec":
-            Lw = cfg.recurrent.lru_width
-            caches.append({
-                "h": torch.zeros((batch, Lw), dtype=torch.float32,
-                                 device=device),
-                "conv": torch.zeros((batch, cfg.recurrent.conv_width - 1, Lw),
-                                    dtype=dt, device=device)})
-            continue
-        if cfg.block == "mla":
-            m = cfg.mla
-            caches.append({
-                "c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
-                                    dtype=dt, device=device),
-                "k_rope": torch.zeros((batch, cache_len, m.qk_rope_head_dim),
-                                      dtype=dt, device=device)})
-            continue
-        size = min(cache_len, cfg.window) if cfg.window else cache_len
-        shape = (batch, size, cfg.n_kv_heads, cfg.hd)
-        if cfg.kv_cache_dtype == "int8":
-            caches.append({
-                "k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                       device=device),
-                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                       device=device)})
-            continue
-        caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)})
-    return caches
 
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.block_kind(li) == "rwkv":
+        prev = (batch, cfg.d_model)
+        return {"tmix": {"wkv": zeros((batch, cfg.n_heads, cfg.hd, cfg.hd),
+                                      torch.float32),
+                         "prev": zeros(prev)},
+                "cmix": {"prev": zeros(prev)}}
+    if cfg.block_kind(li) == "rec":
+        Lw = cfg.recurrent.lru_width
+        return {"h": zeros((batch, Lw), torch.float32),
+                "conv": zeros((batch, cfg.recurrent.conv_width - 1, Lw))}
+    if cfg.block == "mla":
+        m = cfg.mla
+        return {"c_kv": zeros((batch, cache_len, m.kv_lora_rank)),
+                "k_rope": zeros((batch, cache_len, m.qk_rope_head_dim))}
+    size = min(cache_len, cfg.window) if cfg.window else cache_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:-1], torch.bfloat16),
+                "v_scale": zeros(shape[:-1], torch.bfloat16)}
+    return {"k": zeros(shape), "v": zeros(shape)}
 
 
 # ------------------------------------------------------------------ encoder
@@ -437,12 +427,16 @@ def _layer_params(p, li: int, tp):
 
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
             prefix_emb=None, enc_frames=None, use_kernels: bool = False,
-            tp=None):
+            tp=None, sink=None):
     """Run a (B, S) prompt, after its (B, P, D) ``prefix_emb`` where the
     config has a prefix, and with cross-attention over the encoder's output
     of ``enc_frames`` where given; returns the last position's logits (B,
     vocab) and one fresh cache per layer (``init_cache``'s layout, k/v of
-    length ``cache_len``, the prefix's at positions 0..P-1).
+    length ``cache_len``, the prefix's at positions 0..P-1).  Where given,
+    ``sink(li, cache)`` takes each layer's cache as the layer finishes, in
+    place of the returned list (then empty): the stacked model copies it
+    into its stacked caches, so one layer's fresh cache, not every
+    layer's, lives beside them.
 
     With a tensor-parallel context ``tp``, ``params`` holds this rank's
     slices (the leaves outside the layers already whole over the data
@@ -459,7 +453,11 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
                           return_cache=True, cache_len=cache_len,
                           use_kernels=use_kernels, li=li, memory=memory,
                           tp=tp)
-        caches.append(c)
+        if sink is None:
+            caches.append(c)
+        else:
+            sink(li, c)
+            del c      # kept only as the sink's copy
     x = L.norm_fwd(params["final_norm"], cfg, x[:, -1:])
     return _unembed(params, cfg, x, tp)[:, 0], caches
 

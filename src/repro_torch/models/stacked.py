@@ -85,7 +85,7 @@ def layer_groups(cfg: ModelConfig) -> list[dict]:
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-                draw_on_device: bool = False) -> dict:
+                draw_on_device: bool = False, by_layer: bool = False) -> dict:
     """Random parameters in the reference's shapes and dtypes: layer
     weights and norms in ``cfg.dtype``, the final norms in f32 (the
     reference leaves them uncast), the stub ``vision_proj`` an identity in
@@ -94,7 +94,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     is on the CPU, so a seed gives the same weights on every device;
     ``draw_on_device`` draws on ``device`` instead (other numbers, no host
     round trip).  Expert stacks are cast as each is drawn, so a full-width
-    MoE model holds one f32 stack at a time."""
+    MoE model holds one f32 stack at a time.
+
+    ``by_layer`` draws a layer at a time (other numbers at the same
+    scales): each layer's leaves are drawn in f32, cast and copied into
+    their slot of the stacked leaves, so no f32 copy of a stack exists.
+    Drawn whole, a stack is f32 first: full-width deepseek-coder-33b's
+    (62, 7168, 19200) FFN stacks take 34 GB each that way, and its 66.7
+    GB of bf16 weights fit on an 80 GB card only beside one layer's 2.1 GB
+    of f32."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     gen = torch.Generator(device=dev if draw_on_device else "cpu")
@@ -111,14 +119,20 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         "final_norm": L.init_norm(cfg, cfg.d_model, dev),
         "groups": [],
     }
-    for g in layer_groups(cfg):
-        lead = (g["count"],)
-        if g["kind"] == "plain":
-            params["groups"].append(init_layer(g["start"], lead))
-        else:
-            params["groups"].append(
-                {f"b{j}": init_layer(g["start"] + j, lead)
-                 for j in range(g["cycle"])})
+    if by_layer:
+        put, stacked = _stacker(cfg)
+        for li in range(cfg.n_layers):
+            put(li, init_layer(li, ()))
+        params["groups"] = stacked()
+    else:
+        for g in layer_groups(cfg):
+            lead = (g["count"],)
+            if g["kind"] == "plain":
+                params["groups"].append(init_layer(g["start"], lead))
+            else:
+                params["groups"].append(
+                    {f"b{j}": init_layer(g["start"] + j, lead)
+                     for j in range(g["cycle"])})
     if not cfg.tie_embeddings:
         params["lm_head"] = cast(L._randn(gen, (cfg.d_model, cfg.vocab))
                                  * 0.02)
@@ -298,30 +312,46 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
 
 
 # ------------------------------------------------------------------- decode
-def _stack_caches(cfg: ModelConfig, per_layer: list) -> list:
-    """Per-layer caches into the stacked layout of :func:`layer_groups`:
-    each group's layers stacked along a new leading dim, under ``b{j}`` in
-    a cycle or tail group."""
-    out = []
-    for g in layer_groups(cfg):
-        if g["kind"] == "plain":
-            seg = per_layer[g["start"]:g["start"] + g["count"]]
-            out.append(T.map(lambda *a: torch.stack(a), *seg))
-            continue
-        group = {}
-        for j in range(g["cycle"]):
-            seg = [per_layer[g["start"] + c * g["cycle"] + j]
-                   for c in range(g["count"])]
-            group[f"b{j}"] = T.map(lambda *a: torch.stack(a), *seg)
-        out.append(group)
-    return out
+def _stacker(cfg: ModelConfig):
+    """``(put, stacked)``: ``put(li, tree)`` copies layer ``li``'s tree
+    (its parameters or its cache) into its slot of the stacked layout of
+    :func:`layer_groups` (each group's layers stacked along a new leading
+    dim, under ``b{j}`` in a cycle or tail group; a stack is allocated
+    from the first layer put into it), and ``stacked()`` returns that
+    layout once every layer has been put.  Stacking each layer as it comes
+    holds one layer's tree beside the stacks, where ``torch.stack`` over
+    the finished layers holds all of them: a second copy of the whole
+    cache, or of the weights."""
+    groups = layer_groups(cfg)
+    out: list = [{} for _ in groups]
+    place = {g["start"] + c * g["cycle"] + j: (gi, c, f"b{j}")
+             for gi, g in enumerate(groups) for c in range(g["count"])
+             for j in range(g["cycle"])}
+
+    def put(li: int, tree) -> None:
+        gi, c, key = place[li]
+        if key not in out[gi]:
+            count = groups[gi]["count"]
+            out[gi][key] = T.map(lambda a: a.new_empty((count, *a.shape)),
+                                 tree)
+        for s, a in zip(T.leaves(out[gi][key]), T.leaves(tree)):
+            s[c].copy_(a)
+
+    def stacked() -> list:
+        return [o["b0"] if g["kind"] == "plain" else o
+                for g, o in zip(groups, out)]
+
+    return put, stacked
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> list:
     """Zero decode caches in the reference's stacked layout."""
     dev = resolve_device(device)
-    return _stack_caches(cfg, M.init_cache(cfg, batch, cache_len, device=dev))
+    put, stacked = _stacker(cfg)
+    for li in range(cfg.n_layers):
+        put(li, M.init_layer_cache(cfg, li, batch, cache_len, dev))
+    return stacked()
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, *,
@@ -361,8 +391,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     caches come out as this rank's shards."""
     if tp is not None:
         params = tp.unshard(params)
-    logits, per_layer = M.prefill(M.from_stacked(params, cfg), cfg, tokens,
-                                  cache_len, prefix_emb=prefix_emb,
-                                  enc_frames=enc_frames,
-                                  use_kernels=use_kernels, tp=tp)
-    return logits, _stack_caches(cfg, per_layer)
+    put, stacked = _stacker(cfg)
+    logits, _ = M.prefill(M.from_stacked(params, cfg), cfg, tokens,
+                          cache_len, prefix_emb=prefix_emb,
+                          enc_frames=enc_frames, use_kernels=use_kernels,
+                          tp=tp, sink=put)
+    return logits, stacked()

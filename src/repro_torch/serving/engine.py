@@ -187,9 +187,9 @@ class ServeEngine:
                 raise ValueError(f"request {req.rid}: prompt of {plen} "
                                  f"tokens, want 1 to {self.cache_len - 1}")
             logits, cache = self._prefill(req.prompt)
-            # install the prefilled single-sequence cache into this slot
-            for full, new in zip(T.leaves(self.caches), T.leaves(cache)):
-                _install_slot(full, new, slot)
+            _install_slot(self.caches, cache, slot)
+            # dropped before the next admission's prefill makes its own
+            del cache
             tok = int(torch.argmax(logits))
             req.first_token_at = self.clock()
             req.output.append(tok)
@@ -298,7 +298,9 @@ class ServeEngine:
 
 
 # ------------------------------------------------------------------ helpers
-def _install_slot(full: torch.Tensor, new: torch.Tensor, slot: int) -> None:
-    """Write a single-sequence cache (batch 1 at axis 1) into slot ``slot``
-    of the engine cache (batch max_slots at axis 1), in place."""
-    full[:, slot:slot + 1] = new.to(full.dtype)
+def _install_slot(caches, cache, slot: int) -> None:
+    """Write a prefill's single-sequence cache tree (batch 1 at axis 1)
+    into slot ``slot`` of the engine's caches (batch max_slots at axis 1),
+    leaf by leaf in key order, in place."""
+    for full, new in zip(T.leaves(caches), T.leaves(cache)):
+        full[:, slot:slot + 1] = new.to(full.dtype)

@@ -190,6 +190,16 @@ def test_flash_attention_path_shapes(dev, dt, S):
     _flash_case(dev, 1, S, S, 16, 1, 256, dt, window=2048)
 
 
+@pytest.mark.parametrize("S", [1, 129, 2047, 2048])
+def test_flash_attention_coder_heads(dev, S):
+    """deepseek-coder-33b's prefill shape: 56 query heads over 8 KV heads
+    (groups of 7, not a power of two) at hd 128, lengths on either side
+    of the 128-key tiles, T = S and T = S + 1; f32 on the CUDA cores."""
+    for T in (S, S + 1):
+        _flash_case(dev, 1, S, T, 56, 8, 128, torch.bfloat16)
+    _flash_case(dev, 1, S, S, 56, 8, 128, torch.float32)
+
+
 @pytest.mark.parametrize("hd", [64, 256])
 @pytest.mark.parametrize("S", [63, 64, 65, 127, 128, 129, 2047, 2048])
 def test_flash_attention_tile_edges(dev, S, hd):
