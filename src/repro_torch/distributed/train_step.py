@@ -22,7 +22,14 @@ bucket's own collective kind and chunk count:
 
 Every path sums in f32 and divides the sum (never the addends) by dp, so
 all of them give the same numbers.  Each collective call adds one to
-``COLLECTIVES[kind]``.
+``COLLECTIVES[kind]`` and its payload's bytes to ``COLLECTIVE_BYTES[kind]``:
+the whole buffer the collective reduces or assembles (an all-gather's
+output, the others' input), the size NCCL's bus-bandwidth factors apply
+to.
+
+Under ``torch.profiler`` the step's phases are named (``step.fwd``,
+``step.bwd``, ``step.sync`` and one ``sync.bucket`` per bucket inside it,
+``step.clip``, ``step.update``; see :mod:`repro_torch.spans`).
 
 Two deliberate differences from the reference:
 * a failure on the fused path raises; the reference swallows every
@@ -51,15 +58,18 @@ from ..kernels.ref import chunk_cuts
 from ..models.config import ModelConfig
 from ..optim import adamw, apply_updates, clip_by_global_norm
 from ..optim import zero1 as zero1_opt
+from ..spans import span
 from . import sharding as SH
 from . import tensor_parallel as TP
 
 COLLECTIVES = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
+COLLECTIVE_BYTES = {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0}
 
 
 def reset_collectives() -> None:
     for kind in COLLECTIVES:
         COLLECTIVES[kind] = 0
+        COLLECTIVE_BYTES[kind] = 0
 
 
 # ----------------------------------------------------------------- strategy
@@ -182,16 +192,19 @@ class GradSyncStrategy:
 def _all_reduce(t: torch.Tensor, group) -> None:
     dist.all_reduce(t, group=group)
     COLLECTIVES["all_reduce"] += 1
+    COLLECTIVE_BYTES["all_reduce"] += t.numel() * t.element_size()
 
 
 def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     dist.reduce_scatter_tensor(out, inp, group=group)
     COLLECTIVES["reduce_scatter"] += 1
+    COLLECTIVE_BYTES["reduce_scatter"] += inp.numel() * inp.element_size()
 
 
 def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     dist.all_gather_into_tensor(out, inp, group=group)
     COLLECTIVES["all_gather"] += 1
+    COLLECTIVE_BYTES["all_gather"] += out.numel() * out.element_size()
 
 
 def _rs_ag_mean(part: torch.Tensor, dp: int, group) -> torch.Tensor:
@@ -239,38 +252,41 @@ def sync_grads(grads: list, strategy: GradSyncStrategy,
     dp = dist.get_world_size(group)
     out: list = [None] * len(grads)
     for bi, bucket in enumerate(strategy.buckets):
-        leaves = [grads[i] for i in bucket]
-        if strategy.is_fused(bi):
-            _fused_bucket_sync(leaves, dp, strategy.chunk_count(bi), group)
+        with span("sync.bucket"):
+            leaves = [grads[i] for i in bucket]
+            if strategy.is_fused(bi):
+                _fused_bucket_sync(leaves, dp, strategy.chunk_count(bi),
+                                   group)
+                for i, g in zip(bucket, leaves):
+                    out[i] = g
+                continue
+            # the dtype the bucket's concatenation has in the reference
+            dt = functools.reduce(torch.promote_types,
+                                  [g.dtype for g in leaves])
+            n = sum(g.numel() for g in leaves)
+            # reduce in f32, as the reference does: one pack kernel stages
+            # the leaves, converted, into the f32 buffer
+            f32 = K.bucket_pack(leaves, n, torch.float32)
+
+            def reduce_one(part):
+                if strategy.comm_kind(bi) == "rs_ag":
+                    return _rs_ag_mean(part, dp, group)
+                part = part.contiguous()
+                _all_reduce(part, group)
+                return part / dp
+
+            k = min(strategy.chunk_count(bi), max(n, 1))
+            if k > 1:
+                cuts = chunk_cuts(n, k)
+                f32 = torch.cat([reduce_one(f32[cuts[c]:cuts[c + 1]])
+                                 for c in range(k)])
+            else:
+                f32 = reduce_one(f32)
+            fused = f32 if dt == torch.float32 else K.convert_copy(f32, dt)
+            off = 0
             for i, g in zip(bucket, leaves):
-                out[i] = g
-            continue
-        # the dtype the bucket's concatenation has in the reference
-        dt = functools.reduce(torch.promote_types, [g.dtype for g in leaves])
-        n = sum(g.numel() for g in leaves)
-        # reduce in f32, as the reference does: one pack kernel stages the
-        # leaves, converted, into the f32 buffer
-        f32 = K.bucket_pack(leaves, n, torch.float32)
-
-        def reduce_one(part):
-            if strategy.comm_kind(bi) == "rs_ag":
-                return _rs_ag_mean(part, dp, group)
-            part = part.contiguous()
-            _all_reduce(part, group)
-            return part / dp
-
-        k = min(strategy.chunk_count(bi), max(n, 1))
-        if k > 1:
-            cuts = chunk_cuts(n, k)
-            f32 = torch.cat([reduce_one(f32[cuts[c]:cuts[c + 1]])
-                             for c in range(k)])
-        else:
-            f32 = reduce_one(f32)
-        fused = f32 if dt == torch.float32 else K.convert_copy(f32, dt)
-        off = 0
-        for i, g in zip(bucket, leaves):
-            out[i] = fused[off:off + g.numel()].view(g.shape)
-            off += g.numel()
+                out[i] = fused[off:off + g.numel()].view(g.shape)
+                off += g.numel()
     return out
 
 
@@ -394,14 +410,18 @@ def build_train_step(
                                device=leaves[0].device)
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             for mb in micro:
-                l = local_loss(params, mb)
-                for a, g in zip(acc, torch.autograd.grad(l, leaves)):
-                    a.add_(g)
+                with span("step.fwd"):
+                    l = local_loss(params, mb)
+                with span("step.bwd"):
+                    for a, g in zip(acc, torch.autograd.grad(l, leaves)):
+                        a.add_(g)
                 loss = loss + l.detach()
             scale = 1.0 / grad_accum
             return loss * scale, [a.mul_(scale) for a in acc]
-        loss = local_loss(params, batch)
-        loss.backward()
+        with span("step.fwd"):
+            loss = local_loss(params, batch)
+        with span("step.bwd"):
+            loss.backward()
         return loss.detach(), [p.grad for p in leaves]
 
     def loss_and_grads(params, batch):
@@ -420,23 +440,26 @@ def build_train_step(
         dp = dist.get_world_size(group)
         strat = strategy or GradSyncStrategy.per_tensor(params)
         loss, grads = loss_and_grads(params, batch)
-        if fsdp:
-            grads = [g if dd is not None else _mean(g, dp, group)
-                     for g, dd in zip(grads, tp.ddims)]
-        else:
-            grads = sync_grads(grads, strat, group)
-        dist.all_reduce(loss, group=group)
-        loss = loss / dp
-        grads, gnorm = clip_by_global_norm(grads, clip_norm, tp)
+        with span("step.sync"):
+            if fsdp:
+                grads = [g if dd is not None else _mean(g, dp, group)
+                         for g, dd in zip(grads, tp.ddims)]
+            else:
+                grads = sync_grads(grads, strat, group)
+            dist.all_reduce(loss, group=group)
+            loss = loss / dp
+        with span("step.clip"):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm, tp)
         for p in leaves:
             p.grad = None
-        update, apply = opt_update, apply_updates
-        if zero1:
-            z1 = z1 or zero1_of(leaves)
-            update, apply, shard_state = z1
-            opt_state = shard_state(opt_state, leaves)
-        updates, opt_state = update(grads, opt_state, leaves)
-        apply(leaves, updates)
+        with span("step.update"):
+            update, apply = opt_update, apply_updates
+            if zero1:
+                z1 = z1 or zero1_of(leaves)
+                update, apply, shard_state = z1
+                opt_state = shard_state(opt_state, leaves)
+            updates, opt_state = update(grads, opt_state, leaves)
+            apply(leaves, updates)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     step.tp = tp

@@ -38,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree as T
+from ..spans import span
 from . import layers as L
 from . import recurrent as R
 from . import vocab_parallel as VP
@@ -216,43 +217,51 @@ def _layer_fwd(p, cfg: ModelConfig, x, positions, *, cache=None, pos=None,
             return x, aux, new_cache
         return (x, new_cache) if want_cache else x
 
-    h = L.norm_fwd(p["ln1"], cfg, x)
     if cfg.block_kind(li) == "rwkv":
-        tm_out, tnew = R.rwkv_time_mix(
-            p["tmix"], cfg, h, state=cache["tmix"] if cache else None,
-            use_kernel=use_kernels, tp=tp, serve=want_cache)
-        x = x + tm_out
+        with span("model.attn"):
+            h = L.norm_fwd(p["ln1"], cfg, x)
+            tm_out, tnew = R.rwkv_time_mix(
+                p["tmix"], cfg, h, state=cache["tmix"] if cache else None,
+                use_kernel=use_kernels, tp=tp, serve=want_cache)
+            x = x + tm_out
+        with span("model.ffn"):
+            h2 = L.norm_fwd(p["ln2"], cfg, x)
+            cm_out, cnew = R.rwkv_channel_mix(
+                p["tmix"], cfg, h2, state=cache["cmix"] if cache else None,
+                tp=tp)
+            x = x + cm_out
+            return done(x, {"tmix": tnew, "cmix": cnew} if want_cache
+                        else None)
+    with span("model.attn"):
+        h = L.norm_fwd(p["ln1"], cfg, x)
+        if cfg.block_kind(li) == "rec":
+            r = R.recurrent_block_fwd(p["rec"], cfg, h, state=cache,
+                                      return_state=return_cache,
+                                      use_kernel=use_kernels, tp=tp)
+        elif cfg.block == "mla":
+            r = L.mla_fwd(p["attn"], cfg, h, positions, cache=cache,
+                          pos=pos, return_cache=return_cache,
+                          cache_len=cache_len, tp=tp)
+        else:
+            r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache,
+                                pos=pos, window=cfg.window,
+                                use_flash=use_kernels,
+                                return_cache=return_cache,
+                                cache_len=cache_len, tp=tp)
+        mix_out, new_cache = r if want_cache else (r, None)
+        x = x + mix_out
+        if memory is not None:
+            hx = L.norm_fwd(p["ln_x"], cfg, x)
+            x = x + L.cross_attention_fwd(p["xattn"], cfg, hx, memory, tp)
+    with span("model.ffn"):
         h2 = L.norm_fwd(p["ln2"], cfg, x)
-        cm_out, cnew = R.rwkv_channel_mix(
-            p["tmix"], cfg, h2, state=cache["cmix"] if cache else None,
-            tp=tp)
-        x = x + cm_out
-        return done(x, {"tmix": tnew, "cmix": cnew} if want_cache else None)
-    if cfg.block_kind(li) == "rec":
-        r = R.recurrent_block_fwd(p["rec"], cfg, h, state=cache,
-                                  return_state=return_cache,
-                                  use_kernel=use_kernels, tp=tp)
-    elif cfg.block == "mla":
-        r = L.mla_fwd(p["attn"], cfg, h, positions, cache=cache, pos=pos,
-                      return_cache=return_cache, cache_len=cache_len, tp=tp)
-    else:
-        r = L.attention_fwd(p["attn"], cfg, h, positions, cache=cache,
-                            pos=pos, window=cfg.window, use_flash=use_kernels,
-                            return_cache=return_cache, cache_len=cache_len,
-                            tp=tp)
-    mix_out, new_cache = r if want_cache else (r, None)
-    x = x + mix_out
-    if memory is not None:
-        hx = L.norm_fwd(p["ln_x"], cfg, x)
-        x = x + L.cross_attention_fwd(p["xattn"], cfg, hx, memory, tp)
-    h2 = L.norm_fwd(p["ln2"], cfg, x)
-    aux = None
-    if cfg.is_moe_layer(li):
-        ff, aux = L.moe_fwd(p["moe"], cfg, h2, route_rows=route_rows,
-                            tp=tp)
-    else:
-        ff = L.mlp_fwd(p["mlp"], cfg, h2, tp)
-    return done(x + ff, new_cache, aux)
+        aux = None
+        if cfg.is_moe_layer(li):
+            ff, aux = L.moe_fwd(p["moe"], cfg, h2, route_rows=route_rows,
+                                tp=tp)
+        else:
+            ff = L.mlp_fwd(p["mlp"], cfg, h2, tp)
+        return done(x + ff, new_cache, aux)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -307,11 +316,14 @@ def init_layer_cache(cfg: ModelConfig, li: int, batch: int, cache_len: int,
 def _enc_layer_fwd(lp, cfg: ModelConfig, x, tp=None):
     """One encoder layer: pre-norm non-causal self-attention, then pre-norm
     MLP.  Under ``tp`` its specs are found under ``encoder``."""
-    h = L.norm_fwd(lp["ln1"], cfg, x)
-    x = x + L.cross_attention_fwd(lp["attn"], cfg, h, h, tp,
-                                  scope=("encoder", "attn"))
-    h2 = L.norm_fwd(lp["ln2"], cfg, x)
-    return x + L.mlp_fwd(lp["mlp"], cfg, h2, tp, scope=("encoder", "mlp"))
+    with span("model.attn"):
+        h = L.norm_fwd(lp["ln1"], cfg, x)
+        x = x + L.cross_attention_fwd(lp["attn"], cfg, h, h, tp,
+                                      scope=("encoder", "attn"))
+    with span("model.ffn"):
+        h2 = L.norm_fwd(lp["ln2"], cfg, x)
+        return x + L.mlp_fwd(lp["mlp"], cfg, h2, tp,
+                             scope=("encoder", "mlp"))
 
 
 def _encode(enc: dict, cfg: ModelConfig, frames, tp=None, layers=list,

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree as T
 from ..device import resolve_device
+from ..spans import span
 from . import layers as L
 from . import model as M
 from . import vocab_parallel as VP
@@ -203,12 +204,14 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
     layer's inside the block that ``remat`` checkpoints, so the recompute
     gathers them again and at most one layer's whole weights are live
     beyond the shards."""
-    if tp is not None:
-        params = tp.unshard(params)
-    x, positions = _embed_positions(params, cfg, tokens, tp, prefix_emb)
-    offset = x.shape[1] - tokens.shape[1]
-    memory = (encode(params, cfg, enc_frames, tp) if enc_frames is not None
-              else None)
+    with span("model.io"):
+        if tp is not None:
+            params = tp.unshard(params)
+        x, positions = _embed_positions(params, cfg, tokens, tp, prefix_emb)
+        offset = x.shape[1] - tokens.shape[1]
+        memory = (encode(params, cfg, enc_frames, tp)
+                  if enc_frames is not None else None)
+        total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(p, x, li):
         if tp is not None:
@@ -218,20 +221,23 @@ def hidden_forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
                                  with_aux=True, tp=tp, memory=memory)
         return x, aux
 
-    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     li = 0
     for g, tree in zip(layer_groups(cfg), params["groups"]):
         # the reference scans each group; the tracer collapses the loop
         with scan_region():
-            for p in _group_layers(tree, g):
+            with span("model.io"):
+                layers = _group_layers(tree, g)
+            for p in layers:
                 if remat and torch.is_grad_enabled():
                     x, aux = checkpoint(block, p, x, li, use_reentrant=False)
                 else:
                     x, aux = block(p, x, li)
-                total_aux = total_aux + aux
+                with span("model.ffn"):   # the experts' load-balance loss
+                    total_aux = total_aux + aux
                 li += 1
-    x = L.norm_fwd(params["final_norm"], cfg, x)
-    return (x[:, offset:] if offset else x), total_aux
+    with span("model.io"):
+        x = L.norm_fwd(params["final_norm"], cfg, x)
+        return (x[:, offset:] if offset else x), total_aux
 
 
 def forward(params, cfg: ModelConfig, tokens, *, prefix_emb=None,
@@ -279,36 +285,38 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False,
                             prefix_emb=batch.get("prefix_emb"),
                             enc_frames=batch.get("enc_frames"), remat=remat,
                             tp=tp)
-    B, S, D = x.shape
-    dev = x.device
-    targets = torch.cat(
-        [tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype, device=dev)],
-        dim=1)
-    weights = torch.cat(
-        [torch.ones((B, S - 1), dtype=torch.float32, device=dev),
-         torch.zeros((B, 1), dtype=torch.float32, device=dev)], dim=1)
-    chunk = min(_CE_CHUNK, S)
-    while S % chunk:
-        chunk -= 1
-    ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((), dtype=torch.float32, device=dev)
-    if M._head_dim(cfg, tp) is not None:
-        fn = _ce_chunk_vp
-        head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        lead = (head, cfg, tp)
-    else:
-        fn, lead = _ce_chunk, (params, cfg)
-    with scan_region():    # one scan in the reference
-        for c in range(S // chunk):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            args = (*lead, x[:, sl], targets[:, sl], weights[:, sl])
-            if remat and torch.is_grad_enabled():
-                ce, n = checkpoint(fn, *args, use_reentrant=False)
-            else:
-                ce, n = fn(*args)
-            ce_sum = ce_sum + ce
-            cnt = cnt + n
-    return ce_sum / torch.clamp(cnt, min=1.0) + aux
+    with span("model.io"):
+        B, S, D = x.shape
+        dev = x.device
+        targets = torch.cat(
+            [tokens[:, 1:],
+             torch.zeros((B, 1), dtype=tokens.dtype, device=dev)], dim=1)
+        weights = torch.cat(
+            [torch.ones((B, S - 1), dtype=torch.float32, device=dev),
+             torch.zeros((B, 1), dtype=torch.float32, device=dev)], dim=1)
+        chunk = min(_CE_CHUNK, S)
+        while S % chunk:
+            chunk -= 1
+        ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((), dtype=torch.float32, device=dev)
+        if M._head_dim(cfg, tp) is not None:
+            fn = _ce_chunk_vp
+            head = (params["embed"] if cfg.tie_embeddings
+                    else params["lm_head"])
+            lead = (head, cfg, tp)
+        else:
+            fn, lead = _ce_chunk, (params, cfg)
+        with scan_region():    # one scan in the reference
+            for c in range(S // chunk):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                args = (*lead, x[:, sl], targets[:, sl], weights[:, sl])
+                if remat and torch.is_grad_enabled():
+                    ce, n = checkpoint(fn, *args, use_reentrant=False)
+                else:
+                    ce, n = fn(*args)
+                ce_sum = ce_sum + ce
+                cnt = cnt + n
+        return ce_sum / torch.clamp(cnt, min=1.0) + aux
 
 
 # ------------------------------------------------------------------- decode
