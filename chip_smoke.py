@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an
 H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only ad]
 
 Phases, each of which stops the run with a nonzero exit on failure:
 
@@ -341,6 +341,18 @@ Phases, each of which stops the run with a nonzero exit on failure:
       read just after; TTFT, TPOT, tokens/s and
       ``max_memory_allocated`` printed, the peak under the card's memory.
     Within ``CODER_SERVE_LIMIT_S``.
+(ad) training attention at the deepseek-coder-33b cell's shape (q (2,
+    4096, 56, 128), k and v (2, 4096, 8, 128), bf16, causal): the
+    gradients through the flash kernel (its forward with the log-sum-exp,
+    its backward) against autograd of the plain version on f32 copies,
+    one launch of each counted; then the forward without and with the
+    log-sum-exp and the backward timed (median CUDA-event ms) beside their
+    bounds, the chunked path's forward and backward (``plain_ms``) and
+    ``scaled_dot_product_attention``'s forward and its backward
+    (``library_ms``); and the forward's serving shapes of (c), (e), (w),
+    (x) and (ac) at S = 2048 re-timed (and at hd 128 with the log-sum-exp
+    too).
+    ``python3 chip_smoke.py --only ad`` runs (a) and (ad) alone.
 Then the total seconds and the card's name and power limit again, a JSON
 line of every kernel's numbers, and the device line last.
 
@@ -769,8 +781,9 @@ def flash_tc_ptxas(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"flash_tc_kernelI(13__nv_bfloat16|6__half)Li(\d+)E",
-                          entry.group(1))
+            # serving's instance (no log-sum-exp store: Lb0)
+            m = re.search(r"flash_tc_kernelI(13__nv_bfloat16|6__half)Li(\d+)"
+                          r"ELb0E", entry.group(1))
             key = (("bf16" if "bfloat" in m.group(1) else "f16"),
                    int(m.group(2))) if m else None
             continue
@@ -4138,10 +4151,133 @@ def phase_coder(dev) -> tuple:
     return flash, served, check["launches"]
 
 
+# phase (ad): the coder cell's training attention (B, S, H, KV, hd),
+# causal; the serving shapes of the forward re-timed (name, S, H, KV, hd,
+# window), B = 1 and causal as in (c); the largest share of the largest
+# |gradient| the kernel's gradients may be off autograd of the plain
+# version on f32 copies (tests/test_torch_cuda.py's BWD_TOL for bf16)
+TRAIN_ATTN = (2, 4096, 56, 8, 128)
+SERVING_FLASH_ROWS = (("tinyllama", 2048, 32, 4, 64, None),
+                      ("recurrentgemma", 2048, 16, 1, 256, 2048),
+                      ("paligemma", 2048, 8, 1, 256, None),
+                      ("seamless", 2048, 16, 16, 64, None),
+                      ("deepseek-coder", 2048, 56, 8, 128, None))
+FLASH_BWD_TOL = 1e-2
+
+
+def flash_bwd_bound(B, S, H, KV, hd) -> tuple[float, str]:
+    """The least time for the causal backward at self-attention shape:
+    five products of the forward's size (S again, dP, dV, dK, dQ) over the
+    bf16 peak, against q, k, v, o, dO and the log-sum-exp read and dq, dk,
+    dv written once over HBM bandwidth."""
+    flops = 2.5 * flash_flops(B, S, S, H, hd, True)
+    nbytes = 2 * (4 * B * S * H * hd + 4 * B * S * KV * hd) + 4 * B * H * S
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_flash_train(dev) -> dict:
+    """Phase (ad): flash attention's forward with the log-sum-exp and its
+    backward at the coder cell's training shape, checked and timed; the
+    serving shapes of the forward re-timed without and with the
+    log-sum-exp where the kernel stores it.  Returns the timed numbers."""
+    B, S, H, KV, hd = TRAIN_ATTN
+    gen = torch.Generator(device=dev).manual_seed(34)
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    before = (K.flash_attention.lse_launches, K.flash_attention.bwd_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(K.flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    used = (K.flash_attention.lse_launches - before[0],
+            K.flash_attention.bwd_launches - before[1])
+    if used != (1, 1):
+        raise AssertionError(f"flash_attention training: {used} launches of "
+                             f"the forward with the log-sum-exp and the "
+                             f"backward, not (1, 1)")
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(R.flash_attention_ref(*f32), f32, do.float())
+    errs = {}
+    for name, g, w in zip("qkv", got, want):
+        scale = float(w.abs().max())
+        errs[name] = float((g.float() - w).abs().max()) / scale
+        if not errs[name] <= FLASH_BWD_TOL:
+            raise AssertionError(f"flash_attention backward d{name}: off the "
+                                 f"plain version on f32 copies by "
+                                 f"{errs[name]:.3e} of its largest value")
+    del got, want, f32, leaves
+    torch.cuda.empty_cache()
+    o, lse = K.flash_attention_lse(q, k, v)
+    fwd = time_ms(lambda: K.flash_attention(q, k, v))
+    fwd_lse = time_ms(lambda: K.flash_attention_lse(q, k, v))
+    bwd = time_ms(lambda: K.flash_attention_bwd(q, k, v, o, lse, do))
+    pl = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = time_ms(lambda: torch.autograd.grad(
+        L._flash_xla(*pl, True, None), pl, do), reps=5)
+    st = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    sout = F.scaled_dot_product_attention(*st, is_causal=True,
+                                          enable_gqa=True)
+    lib = time_ms(lambda: torch.autograd.grad(sout, st, do.transpose(1, 2),
+                                              retain_graph=True))
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            *st, is_causal=True, enable_gqa=True))
+    del pl, st, sout, o, lse
+    torch.cuda.empty_cache()
+    fb, fby = flash_bound(B, S, S, H, KV, hd, torch.bfloat16, True)
+    bb, bby = flash_bwd_bound(B, S, H, KV, hd)
+    print(f"kernel flash_attention with lse (training, q {tuple(q.shape)} kv "
+          f"{tuple(k.shape)} causal): ms={fwd_lse:.4f} (without lse "
+          f"{fwd:.4f}, {100 * (fwd_lse / fwd - 1):+.2f}%) bound_ms={fb:.5f} "
+          f"({fby}) library_ms={lib_fwd:.4f} "
+          f"{flash_flops(B, S, S, H, hd, True) / fwd_lse / 1e9:.1f} TFLOP/s")
+    print(f"kernel flash_attention_bwd (training, same shape): gradients off "
+          f"the plain version on f32 copies by dq {errs['q']:.3e}, dk "
+          f"{errs['k']:.3e}, dv {errs['v']:.3e} of their largest values "
+          f"(limit {FLASH_BWD_TOL}); ms={bwd:.4f} bound_ms={bb:.5f} ({bby}, "
+          f"{bwd / bb:.2f}x) "
+          f"{2.5 * flash_flops(B, S, S, H, hd, True) / bwd / 1e9:.1f} "
+          f"TFLOP/s library_ms={lib:.4f} (SDPA's backward); forward with "
+          f"lse + backward {fwd_lse + bwd:.4f} ms, plain_ms={plain:.4f} (the "
+          f"chunked path's forward and backward), SDPA's "
+          f"{lib_fwd + lib:.4f}")
+    rows = {}
+    for name, S2, H2, KV2, hd2, window in SERVING_FLASH_ROWS:
+        sq, sk, sv = _flash_inputs(gen, dev, S2, S2, H2, KV2, hd2,
+                                   torch.bfloat16)
+        t0 = time_ms(lambda: K.flash_attention(sq, sk, sv, window=window))
+        with_lse = ""
+        if hd2 in K.FLASH_BWD_HEAD_DIMS:
+            t1 = time_ms(lambda: K.flash_attention_lse(sq, sk, sv,
+                                                       window=window))
+            with_lse = f", {t1:.4f} with lse ({100 * (t1 / t0 - 1):+.2f}%)"
+        rows[name] = t0
+        print(f"kernel flash_attention {name} serving shape q {tuple(sq.shape)}"
+              f" kv {tuple(sk.shape)} window {window}: ms={t0:.4f}{with_lse}")
+    print(f"phase (ad): card {card_line()}")
+    return {"fwd_ms": fwd, "fwd_lse_ms": fwd_lse, "bwd_ms": bwd,
+            "fwd_bound_ms": fb, "bwd_bound_ms": bb, "plain_ms": plain,
+            "library_ms": lib, "library_fwd_ms": lib_fwd, "errs": errs,
+            "serving": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--only", "ad"]:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        phase_card_and_build()
+        train_attn = phase_flash_train(dev)
+        print(json.dumps({"training_attention": train_attn}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     art = tempfile.mkdtemp(prefix="chip_smoke_")
     dry = start_dryruns(art)
     bg = start_serving_dryruns(art)
@@ -4242,6 +4378,7 @@ def run(art: str, dry: list, bg: dict) -> int:
     res["bucket_pack"]["max_abs_err"] = max(
         res["bucket_pack"]["max_abs_err"], ab_err)
     coder_flash, served_coder, coder_check = phase_coder(dev)
+    train_attn = phase_flash_train(dev)
     res["flash_attention"]["max_abs_err"] = max(
         res["flash_attention"]["max_abs_err"], coder_flash["max_abs_err"])
     tp_launches = {k: sum(c["launches"][k] for c in tp_checks)
@@ -4293,6 +4430,7 @@ def run(art: str, dry: list, bg: dict) -> int:
     # again at the end, beside the numbers, where a cut log keeps it
     print(f"card (nvidia-smi name, power.limit): {card_line()}")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"training_attention": train_attn}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

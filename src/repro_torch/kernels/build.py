@@ -45,8 +45,9 @@ _SIGNATURES = {
     "repro_fused_unpack": [_P, _I, _LL, _LL, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
-    "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _P],
+    "repro_flash_attention_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _P],
+    "repro_flash_attention_bwd": [_P] * 11 + [_I] * 10 + [_P],
     "repro_flash_attention_tc_smem": [_I],
     "repro_rglru_scan": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _LL,
                          _P],

@@ -1,12 +1,17 @@
-// Forward flash attention (GQA, causal, sliding window) for Hopper (sm_90a),
-// bound to Python with ctypes through a plain C interface (see ../build.py
-// and ../ops.py::flash_attention).  Two routes, chosen by dtype:
+// Flash attention (GQA, causal, sliding window) for Hopper (sm_90a), bound
+// to Python with ctypes through a plain C interface (see ../build.py and
+// ../ops.py::flash_attention).  The forward has two routes, chosen by dtype:
 //   bf16, f16: flash_tc_kernel, on the tensor cores (wgmma fed by TMA);
 //   f32:       flash_fwd_kernel, on the CUDA cores.
+// The tensor-core route also has a backward (flash_bwd_kernel, below), so
+// training runs through it.
 //
-// Replaces the Pallas kernel of the JAX reference:
+// The forward replaces the Pallas kernel of the JAX reference:
 //   flash_attention_kernel <- src/repro/kernels/flash_attention.py:82
 //                             (flash_attention_kernel, body _kernel)
+// The backward replaces no Pallas kernel: the reference trains through
+// XLA's query-chunked path (src/repro/models/layers.py, _flash_xla), whose
+// port (../../models/layers.py::_flash_xla) the CPU keeps.
 //
 // What it computes, as the Pallas kernel does: q (B,S,H,hd), k and v
 // (B,T,KV,hd), all row-major and contiguous; G = H / KV query heads share a
@@ -57,10 +62,13 @@
 // to bf16 (relative 2^-9) adds an error of the order of the check against
 // f32 copies of the inputs (rtol 8e-3, atol 2e-3); the split keeps P's
 // error below 2^-16.  The epilogue divides by max(l, 1e-30) in f32 and
-// stores the rows below S.
+// stores the rows below S.  The instance the backward's forward takes (LSE
+// true, hd 128) also stores each row's log-sum-exp (m + log2 l, times
+// ln 2); serving's instance is compiled without that store, so its code
+// and time are the forward's alone.
 // Next steps, not here: a warp-specialised producer with setmaxnreg,
 // ping-pong between the consumer warpgroups with the softmax overlapping
-// the next wgmma, persistent blocks, fp8, a backward kernel.
+// the next wgmma, persistent blocks, fp8.
 //
 // The CUDA-core route (flash_fwd_kernel, f32 only: TF32 keeps about three
 // decimal digits, short of the f32 tolerance 2e-5).  One block covers one
@@ -322,6 +330,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 namespace tc {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The tile shapes at head dim HD, for a 16-bit input type.
 template <int HD> struct Tile {
@@ -521,13 +530,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(Tile<HD>::THREADS, Tile<HD>::MIN_BLOCKS)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, T* __restrict__ o,
                 int S, int T_, int H, int G, int causal, int window,
-                float scale_log2) {
+                float scale_log2, float* __restrict__ lse, int lse_rows) {
   using C = Tile<HD>;
   constexpr int BN = C::BN, SW = C::SW, EPR = C::EPR;
   constexpr int NS = BN / 2;   // S accumulator floats per thread
@@ -714,6 +723,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const int qpos = row0 + 8 * r;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      // the row's log-sum-exp of the scaled scores, natural log, for the
+      // backward; serving's instance (LSE false) has no such store
+      if (LSE && qpos < S && (lane & 3) == 0)
+        lse[((long long)b * H + h) * lse_rows + qpos] =
+            (m[r] + log2f(l[r])) * kLn2;
       if (qpos < S) {
         T* out = o + ((long long)b * S + qpos) * H * HD + (long long)h * HD +
                  col;
@@ -783,15 +797,23 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int NH,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int T_, int H, int KV, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int lse_rows, int B, int S, int T_, int H,
+                   int KV, int causal, int window, cudaStream_t stream) {
   using C = Tile<HD>;
   CUtensorMap qmap, kmap, vmap;
   if (!encode_map<T, HD>(&qmap, q, B, S, H, C::BM) ||
       !encode_map<T, HD>(&kmap, k, B, T_, KV, C::BN) ||
       !encode_map<T, HD>(&vmap, v, B, T_, KV, C::BN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_tc_kernel<T, HD>;
+  // the log-sum-exp only where the backward takes the head dim, so every
+  // other instance, and serving's at every head dim, is the forward alone
+  auto kernel = flash_tc_kernel<T, HD, false>;
+  if (lse != nullptr) {
+    if constexpr (HD == 128)
+      kernel = flash_tc_kernel<T, HD, true>;
+    else
+      return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
@@ -799,30 +821,510 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = kLog2e / sqrtf((float)HD);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<T*>(o), S, T_, H, H / KV, causal, window,
-      scale_log2);
+      scale_log2, lse, lse_rows);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int T_, int H, int KV, int hd,
-                        int causal, int window, cudaStream_t stream) {
+                        float* lse, int lse_rows, int B, int S, int T_, int H,
+                        int KV, int hd, int causal, int window,
+                        cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, S, T_, H, KV, causal, window,
-                           stream);
+      return launch<T, 32>(q, k, v, o, lse, lse_rows, B, S, T_, H, KV,
+                           causal, window, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, S, T_, H, KV, causal, window,
-                           stream);
+      return launch<T, 64>(q, k, v, o, lse, lse_rows, B, S, T_, H, KV,
+                           causal, window, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, S, T_, H, KV, causal, window,
-                            stream);
+      return launch<T, 128>(q, k, v, o, lse, lse_rows, B, S, T_, H, KV,
+                            causal, window, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, S, T_, H, KV, causal, window,
-                            stream);
+      return launch<T, 256>(q, k, v, o, lse, lse_rows, B, S, T_, H, KV,
+                            causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// ------------------------------------------------ backward (bf16, f16)
+//
+// Gradients of the tensor-core forward, given its output O, the upstream
+// gradient dO and the forward's per-row log-sum-exp L (natural log):
+//   P = exp(scale * Q.K^T - L) under the forward's masks (0 where masked),
+//   dV = P^T.dO,  dP = dO.V^T,  D = rowsum(dO * O),  dS = P * (dP - D),
+//   dQ = scale * dS.K,  dK = scale * dS^T.Q,
+// with P and dS rounded to the input type before their products, as the
+// plain path's bf16 einsums round them, and every sum in f32.
+//
+// Three launches.  flash_bwd_dot_kernel: D in f32, one warp a row.
+// flash_bwd_kernel: one block per (KV head, batch, tile of BN = 128 keys),
+// two consumer warpgroups of 64 keys each, heaviest tiles (the first keys,
+// seen by the most causal rows) issued first.  K and V of the tile are
+// loaded once with TMA; the block then walks the G query heads of its KV
+// head and, for each, the tiles of BM = 64 query rows the masks leave
+// live, Q, dO, L and D of a tile arriving by TMA into a two-stage ring on
+// one mbarrier each.  Each warpgroup computes S^T = K.Q^T and dP^T = V.dO^T
+// (wgmma, both operands K-major in shared memory), P and dS in registers
+// (the accumulator layout is the A fragment's), then dV += P^T.dO and
+// dK += dS^T.Q with the A operand from registers and dO, Q MN-major.  dK
+// and dV stay in registers across all G heads (64 + 64 floats a thread),
+// so no pass reduces over heads.  dS^T goes to shared memory (128-byte
+// swizzle, double-buffered); after a barrier of both warpgroups each
+// computes half of dQ's head dims, dQ = dS.K over the tile's live keys
+// (both operands MN-major), stages it in shared memory and adds it to an
+// f32 scratch in global memory with one bulk reduce-add (TMA's
+// cp.reduce.async.bulk) a tile.  flash_bwd_dq_kernel scales that scratch
+// and converts it to the input type.  A warpgroup whose 64 keys the masks
+// hide from a whole query tile skips it; tiles no key of the block sees are
+// never visited.
+//
+// What bounds it: at deepseek-coder-33b's training shape (B=2, S=T=4096,
+// 56 query heads over 8 KV heads, hd 128, causal) five products of the
+// forward's size over the causal half: 2.5 x 4.81e11 = 1.20e12 FLOP, 1.22 ms
+// at the bf16 peak, against 0.47 GB of q, k, v, o, dO and the gradients
+// (0.14 ms) and the dQ scratch's f32 traffic.
+template <int HD> struct BwdTile {
+  static constexpr int BN = 128;                // keys per block
+  static constexpr int BM = 64;                 // query rows per step
+  static constexpr int NWG = 2;                 // consumer warpgroups
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int SW = 128, EPR = 64, NCH = HD / EPR;
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BN * HD * 2;  // K or V of the block
+  static constexpr int QT_BYTES = BM * HD * 2;  // one Q or dO tile
+  static constexpr int DS_BYTES = BN * BM * 2;  // one dS^T buffer
+  static constexpr int DQ_COLS = HD / NWG;      // dQ head dims a warpgroup
+  static constexpr int DQ_BYTES = BM * DQ_COLS * 4;
+  static constexpr int STAGE_OFF = 2 * KV_BYTES;          // Q, dO per stage
+  static constexpr int DS_OFF = STAGE_OFF + STAGES * 2 * QT_BYTES;
+  static constexpr int DQ_OFF = DS_OFF + 2 * DS_BYTES;
+  static constexpr int ROW_OFF = DQ_OFF + NWG * DQ_BYTES;  // L, D per stage
+  static constexpr int BAR_OFF = ROW_OFF + STAGES * 2 * BM * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + STAGES) + 1024;
+  static_assert(HD == 128, "the backward is built for hd 128");
+};
+
+// Rows of the log-sum-exp and D buffers: S rounded up to whole query tiles,
+// so a tile's 64 values are one aligned bulk copy.
+constexpr int kBwdRows = 64;
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// the shared memory of every bulk reduce-add this thread issued is read
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// writes to shared memory by this thread are seen by wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d (64 x 64, f32) = [d +] A (64 x 16) . B (16 x 64), both MN-major in
+// shared memory (the transpose bits).
+template <typename T>
+__device__ void mma_ss_tt(float* d, uint64_t a, uint64_t b, int acc);
+#define REPRO_MMA_TT(TY, CT)                                                 \
+  template <>                                                                \
+  __device__ __forceinline__ void mma_ss_tt<CT>(float* d, uint64_t a,        \
+                                                uint64_t b, int acc) {       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+                 " {" REPRO_S32 "}, %32, %33, p, 1, 1, 1, 1;\n}\n"           \
+                 : REPRO_F32(d, 0)                                           \
+                 : "l"(a), "l"(b), "r"(acc));                                \
+  }
+REPRO_MMA_TT("bf16", __nv_bfloat16)
+REPRO_MMA_TT("f16", __half)
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// D[b, h, row] = sum over hd of dO * O in f32, for rows below S; 0 for the
+// rows up to `rows`.  One warp a row, four elements a lane.
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     float* __restrict__ dvec, int B, int S, int H,
+                     int rows) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (long long)B * H * rows) return;
+  const int s = (int)(w % rows);
+  const long long bh = w / rows;
+  const int h = (int)(bh % H), b = (int)(bh / H);
+  float acc = 0.f;
+  if (s < S) {
+    const long long off = (((long long)b * S + s) * H + h) * HD;
+#pragma unroll
+    for (int d = lane * 4; d < HD; d += 128) {
+      const uint2 ou = *reinterpret_cast<const uint2*>(o + off + d);
+      const uint2 gu = *reinterpret_cast<const uint2*>(dout + off + d);
+      const T* oe = reinterpret_cast<const T*>(&ou);
+      const T* ge = reinterpret_cast<const T*>(&gu);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc = fmaf(to_float(oe[i]), to_float(ge[i]),
+                                             acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) dvec[w] = acc;
+}
+
+// The f32 dQ scratch: per (batch, head, query tile, warpgroup's half of the
+// head dims) a 64 x DQ_COLS block, rows of DQ_COLS floats whose 8-float
+// units are swizzled by the row (unit u of row r at u ^ (r % 8)), the
+// layout the backward stages it in.
+template <int HD>
+__device__ __forceinline__ long long dq_index(int b, int h, int H, int nqt,
+                                              int s, int d) {
+  using C = BwdTile<HD>;
+  const int qt = s / C::BM, r = s % C::BM, w = d / C::DQ_COLS,
+            c = d % C::DQ_COLS;
+  return ((((long long)b * H + h) * nqt + qt) * C::NWG + w) * C::BM *
+             C::DQ_COLS +
+         r * C::DQ_COLS + (((c / 8) ^ (r % 8)) * 8) + c % 8;
+}
+
+// dq[b, s, h, :] = scale * the scratch, in T; one thread per 8 head dims.
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_kernel(const float* __restrict__ acc, T* __restrict__ dq,
+                    int B, int S, int H, int nqt, float scale) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * S * H * (HD / 8)) return;
+  const int u = (int)(i % (HD / 8));
+  const long long row = i / (HD / 8);            // (b * S + s) * H + h
+  const int h = (int)(row % H);
+  const long long bs = row / H;
+  const int s = (int)(bs % S), b = (int)(bs / S);
+  const float* src = acc + dq_index<HD>(b, h, H, nqt, s, 8 * u);
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  const float4 y = *reinterpret_cast<const float4*>(src + 4);
+  uint4 out;
+  float r0, r1;
+  out.x = Pair<T>::pack(x.x * scale, x.y * scale, r0, r1);
+  out.y = Pair<T>::pack(x.z * scale, x.w * scale, r0, r1);
+  out.z = Pair<T>::pack(y.x * scale, y.y * scale, r0, r1);
+  out.w = Pair<T>::pack(y.z * scale, y.w * scale, r0, r1);
+  *reinterpret_cast<uint4*>(dq + row * HD + 8 * u) = out;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BwdTile<HD>::THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap domap,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ dvec, float* __restrict__ dq_acc,
+                 T* __restrict__ dk, T* __restrict__ dv, int S, int T_,
+                 int H, int G, int rows, int causal, int window,
+                 float scale_log2, float scale) {
+  using C = BwdTile<HD>;
+  constexpr int BM = C::BM, BN = C::BN, SW = C::SW, EPR = C::EPR;
+  constexpr int KPR = EPR / 16;  // k-steps of a K-major product per chunk
+  constexpr int NA = BM / 2;     // S^T and dP^T accumulator floats a thread
+  constexpr int NO = HD / 2;     // dK, dV accumulator floats a thread
+  constexpr int NQ = C::DQ_COLS / 2;   // dQ accumulator floats a thread
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);   // generic view of base
+  const uint32_t k_s = base, v_s = base + C::KV_BYTES;
+  auto q_tile = [&](int s) { return base + C::STAGE_OFF + s * 2 * C::QT_BYTES; };
+  auto do_tile = [&](int s) { return q_tile(s) + C::QT_BYTES; };
+  auto ds_buf = [&](int j) { return base + C::DS_OFF + (j & 1) * C::DS_BYTES; };
+  auto rows_of = [&](int s) {   // L then D of stage s, BM floats each
+    return reinterpret_cast<const float*>(gbase + C::ROW_OFF + s * 2 * BM * 4);
+  };
+  const uint32_t bar_kv = base + C::BAR_OFF;
+  auto stage_bar = [&](int s) { return bar_kv + 8 * (1 + s); };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int n0 = blockIdx.z * BN;   // blockIdx.z = 0 first: the most rows
+  const int nqt = rows / BM;
+
+  // query rows that see some key of the block, as whole tiles
+  const int k_last = min(n0 + BN, T_) - 1;
+  const int m_lo = causal ? n0 : 0;
+  const int m_hi = window > 0 ? min(S, k_last + window) : S;
+  const int qt0 = m_lo / BM;
+  const int nq = max(0, (m_hi + BM - 1) / BM - qt0);
+  const int iters = G * nq;
+
+  auto load_tile = [&](int j) {
+    const int s = j % C::STAGES, h = kvh * G + j / nq;
+    const int q0 = (qt0 + j % nq) * BM;
+    mbar_expect_tx(stage_bar(s), 2 * C::QT_BYTES + 2 * BM * 4);
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c) {
+      tma_load(q_tile(s) + c * BM * SW, &qmap, stage_bar(s), c * EPR, h, q0,
+               b);
+      tma_load(do_tile(s) + c * BM * SW, &domap, stage_bar(s), c * EPR, h,
+               q0, b);
+    }
+    const long long at = ((long long)b * H + h) * rows + q0;
+    const uint32_t rs = base + C::ROW_OFF + s * 2 * BM * 4;
+    bulk_load(rs, lse + at, BM * 4, stage_bar(s));
+    bulk_load(rs + BM * 4, dvec + at, BM * 4, stage_bar(s));
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(stage_bar(s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::NCH; ++c) {
+      tma_load(k_s + c * BN * SW, &kmap, bar_kv, c * EPR, kvh, n0, b);
+      tma_load(v_s + c * BN * SW, &vmap, bar_kv, c * EPR, kvh, n0, b);
+    }
+    for (int j = 0; j < min(iters, C::STAGES); ++j) load_tile(j);
+  }
+
+  // This thread's accumulator rows (keys, for S^T, dP^T, dK, dV; query
+  // rows, for dQ) are r0 and r0 + 8 of its warpgroup's 64, its columns col,
+  // col + 1 of every 8.
+  const int r0 = 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int kb = n0 + 64 * wg;                   // the warpgroup's keys
+  float dkacc[NO], dvacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dkacc[i] = dvacc[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int j = 0; j < iters; ++j) {
+    const int s = j % C::STAGES;
+    const uint32_t ph = (j / C::STAGES) & 1;
+    const int h = kvh * G + j / nq;
+    const int qt = qt0 + j % nq, q0 = qt * BM;
+    const int q_max = min(q0 + BM, S) - 1;
+    // does any (key, row) pair of keys [k0, k0 + 64) and this tile count?
+    auto live = [&](int k0) {
+      return k0 < T_ && !(causal && k0 > q_max) &&
+             !(window > 0 && k0 + 63 <= q0 - window);
+    };
+    const bool live0 = live(n0), live1 = live(n0 + 64);
+    mbar_wait(stage_bar(s), ph);
+    if (wg == 0 ? live0 : live1) {
+      const float* lrow = rows_of(s);
+      const float* drow = lrow + BM;
+      // S^T = K . Q^T  (keys x query rows)
+      float pacc[NA];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / KPR, w = kk % KPR;
+        mma_ss<T, BM>(pacc,
+                      smem_desc<SW>(k_s + c * BN * SW + wg * 64 * SW + w * 32, 1),
+                      smem_desc<SW>(q_tile(s) + c * BM * SW + w * 32, 1), kk > 0);
+      }
+      wg_commit();
+      // dP^T = V . dO^T, issued behind S^T
+      float dpacc[NA];
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = kk / KPR, w = kk % KPR;
+        mma_ss<T, BM>(dpacc,
+                      smem_desc<SW>(v_s + c * BN * SW + wg * 64 * SW + w * 32, 1),
+                      smem_desc<SW>(do_tile(s) + c * BM * SW + w * 32, 1), kk > 0);
+      }
+      wg_commit();
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_regs<NA>(pacc);
+
+      // P = exp2(S * scale * log2 e - L * log2 e), 0 where masked
+      const bool masked = (causal && kb + 63 > q0) ||
+                          (window > 0 && kb <= q_max - window) ||
+                          kb + 64 > T_ || q0 + BM > S;
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int qc = 8 * (i / 4) + col + (i & 1);
+        float p = fast_exp2(pacc[i] * scale_log2 - lrow[qc] * kLog2e);
+        if (masked) {
+          const int key = kb + r0 + 8 * ((i / 2) & 1), qpos = q0 + qc;
+          bool ok = key < T_ && qpos < S && (!causal || key <= qpos);
+          if (window > 0) ok = ok && key > qpos - window;
+          p = ok ? p : 0.f;
+        }
+        pacc[i] = p;
+      }
+      wg_wait_all();
+      fence_regs<NA>(dpacc);
+
+      // dS = P * (dP - D); P and dS rounded to T as the products' A
+      // fragments, dS^T also to shared memory for dQ
+      uint32_t pp[NA / 2], dsp[NA / 2];
+      const uint32_t dsb = ds_buf(j);
+#pragma unroll
+      for (int i = 0; i < NA; i += 2) {
+        const int qc = 8 * (i / 4) + col;
+        float u0, u1;
+        pp[i / 2] = Pair<T>::pack(pacc[i], pacc[i + 1], u0, u1);
+        dsp[i / 2] = Pair<T>::pack(pacc[i] * (dpacc[i] - drow[qc]),
+                                   pacc[i + 1] * (dpacc[i + 1] - drow[qc + 1]),
+                                   u0, u1);
+        const int r = 64 * wg + r0 + 8 * ((i / 2) & 1);   // key in the block
+        const uint32_t at = dsb + r * SW + ((((i / 4) ^ (r % 8))) << 4) + col * 2;
+        asm volatile("st.shared.u32 [%0], %1;" ::"r"(at), "r"(dsp[i / 2])
+                     : "memory");
+      }
+      fence_async_smem();
+
+      // dV += P^T . dO,  dK += dS^T . Q
+      fence_regs<NO>(dvacc);
+      fence_regs<NO>(dkacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < C::NCH; ++c) {
+          mma_rs<T, EPR>(dvacc + c * (EPR / 2), pp + 4 * kk,
+                         smem_desc<SW>(do_tile(s) + c * BM * SW + kk * 16 * SW,
+                                       (8 * SW) >> 4));
+          mma_rs<T, EPR>(dkacc + c * (EPR / 2), dsp + 4 * kk,
+                         smem_desc<SW>(q_tile(s) + c * BM * SW + kk * 16 * SW,
+                                       (8 * SW) >> 4));
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs<NO>(dvacc);
+      fence_regs<NO>(dkacc);
+    }
+    // both warpgroups' dS^T are in shared memory, stage s is read, and the
+    // dQ staging's last bulk add has read it
+    if (tid % 128 == 0) bulk_wait_read();
+    named_sync(1, C::THREADS);
+    if (tid == 0 && j + C::STAGES < iters) load_tile(j + C::STAGES);
+
+    // dQ[:, this warpgroup's head dims] = dS . K over the live keys
+    if (live0 || live1) {
+      const int kk0 = live0 ? 0 : 4, kk1 = live1 ? 8 : 4;
+      const uint32_t dsb = ds_buf(j);
+      float dqacc[NQ];
+      wg_fence();
+      for (int kk = kk0; kk < kk1; ++kk)
+        mma_ss_tt<T>(dqacc, smem_desc<SW>(dsb + kk * 16 * SW, (8 * SW) >> 4),
+                     smem_desc<SW>(k_s + wg * BN * SW + kk * 16 * SW,
+                                   (8 * SW) >> 4),
+                     kk > kk0);
+      wg_commit();
+      wg_wait_all();
+      fence_regs<NQ>(dqacc);
+      uint8_t* stage = gbase + C::DQ_OFF + wg * C::DQ_BYTES;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = r0 + 8 * rr;
+#pragma unroll
+        for (int n8 = 0; n8 < C::DQ_COLS / 8; ++n8)
+          *reinterpret_cast<float2*>(stage + r * C::DQ_COLS * 4 +
+                                     ((n8 ^ (r % 8)) * 32) + col * 4) =
+              make_float2(dqacc[4 * n8 + 2 * rr], dqacc[4 * n8 + 2 * rr + 1]);
+      }
+      fence_async_smem();
+      named_sync(2 + wg, 128);
+      if (tid % 128 == 0)
+        bulk_reduce_add(dq_acc + dq_index<HD>(b, h, H, nqt, q0,
+                                               wg * C::DQ_COLS),
+                        base + C::DQ_OFF + wg * C::DQ_BYTES, C::DQ_BYTES);
+    }
+  }
+  if (tid % 128 == 0) bulk_wait_all();
+
+  // dK (times the softmax scale) and dV of the warpgroup's keys below T
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = kb + r0 + 8 * rr;
+    if (key < T_) {
+      const long long off = (((long long)b * T_ + key) * (H / G) + kvh) * HD +
+                            col;
+#pragma unroll
+      for (int n8 = 0; n8 < HD / 8; ++n8) {
+        float u0, u1;
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * n8) =
+            Pair<T>::pack(dkacc[4 * n8 + 2 * rr] * scale,
+                          dkacc[4 * n8 + 2 * rr + 1] * scale, u0, u1);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * n8) =
+            Pair<T>::pack(dvacc[4 * n8 + 2 * rr], dvacc[4 * n8 + 2 * rr + 1],
+                          u0, u1);
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* dvec, float* dq_acc, void* dq, void* dk,
+                       void* dv, int B, int S, int T_, int H, int KV,
+                       int rows, int causal, int window,
+                       cudaStream_t stream) {
+  using C = BwdTile<HD>;
+  {
+    const long long warps = (long long)B * H * rows;
+    flash_bwd_dot_kernel<T, HD><<<(unsigned)((warps * 32 + 255) / 256), 256, 0,
+                                  stream>>>(static_cast<const T*>(o),
+                                            static_cast<const T*>(dout), dvec,
+                                            B, S, H, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!encode_map<T, HD>(&qmap, q, B, S, H, C::BM) ||
+      !encode_map<T, HD>(&domap, dout, B, S, H, C::BM) ||
+      !encode_map<T, HD>(&kmap, k, B, T_, KV, C::BN) ||
+      !encode_map<T, HD>(&vmap, v, B, T_, KV, C::BN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_kernel<T, HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf((float)HD);
+  dim3 grid(KV, B, (T_ + C::BN - 1) / C::BN);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+      qmap, kmap, vmap, domap, lse, dvec, dq_acc, static_cast<T*>(dk),
+      static_cast<T*>(dv), S, T_, H, H / KV, rows, causal, window,
+      kLog2e * scale, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)B * S * H * (HD / 8);
+  flash_bwd_dq_kernel<T, HD><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<T*>(dq), B, S, H, rows / C::BM, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace tc
@@ -846,25 +1348,71 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 
 // o = attention(q, k, v) on `stream` on the tensor cores: dtype 1 (bf16) or
 // 2 (f16), q, k and v alike and starting 16-byte aligned (TMA reads them);
-// hd in {32, 64, 128, 256}; H % KV == 0; window <= 0 means none.  Returns
-// the launch's cudaError_t.
+// hd in {32, 64, 128, 256}; H % KV == 0; window <= 0 means none.  With
+// `lse` (f32, B x H x lse_rows, lse_rows >= S; hd 128 only) it also writes
+// each row's natural-log log-sum-exp of the scaled scores at [b, h, row]
+// for rows below S; null writes nothing.  Returns the launch's
+// cudaError_t.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
-                                        const void* v, void* o, int dtype,
-                                        int B, int S, int T, int H, int KV,
-                                        int hd, int causal, int window,
+                                        const void* v, void* o, void* lse,
+                                        int lse_rows, int dtype, int B, int S,
+                                        int T, int H, int KV, int hd,
+                                        int causal, int window,
                                         void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 ||
+      (lse != nullptr && lse_rows < S))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case kBF16:
-      return (int)tc::dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV,
-                                                 hd, causal, window, st);
+      return (int)tc::dispatch_hd<__nv_bfloat16>(q, k, v, o, l, lse_rows, B,
+                                                 S, T, H, KV, hd, causal,
+                                                 window, st);
     case kF16:
-      return (int)tc::dispatch_hd<__half>(q, k, v, o, B, S, T, H, KV, hd,
-                                          causal, window, st);
+      return (int)tc::dispatch_hd<__half>(q, k, v, o, l, lse_rows, B, S, T,
+                                          H, KV, hd, causal, window, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Gradients of attention(q, k, v) on `stream` on the tensor cores: dtype 1
+// (bf16) or 2 (f16); q, o and dout (B, S, H, hd), k and v (B, T, KV, hd),
+// all contiguous and 16-byte aligned; hd 128; H % KV == 0; window <= 0 means
+// none.  lse (B x H x rows, f32) is the forward's; rows is S rounded up to
+// a multiple of 64, and lse and dvec start 16-byte aligned.  dvec (B x H x
+// rows f32) is scratch; dq_acc (f32, B x H x rows x hd) must hold zeros.
+// Writes dq (like q), dk and dv (like k).  Returns the first launch's
+// error.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dvec, void* dq_acc, void* dq,
+    void* dk, void* dv, int dtype, int B, int S, int T, int H, int KV, int hd,
+    int rows, int causal, int window, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || hd != 128 ||
+      rows < S || rows % tc::kBwdRows != 0)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+       (uintptr_t)dout | (uintptr_t)lse | (uintptr_t)dvec |
+       (uintptr_t)dq_acc | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) &
+      15)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(dvec);
+  float* a = static_cast<float*>(dq_acc);
+  switch (dtype) {
+    case kBF16:
+      return (int)tc::launch_bwd<__nv_bfloat16, 128>(
+          q, k, v, o, dout, l, d, a, dq, dk, dv, B, S, T, H, KV, rows, causal,
+          window, st);
+    case kF16:
+      return (int)tc::launch_bwd<__half, 128>(q, k, v, o, dout, l, d, a, dq,
+                                              dk, dv, B, S, T, H, KV, rows,
+                                              causal, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

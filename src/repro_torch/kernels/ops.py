@@ -1,6 +1,7 @@
 """Wrappers of the port's CUDA kernels (port of the matching wrappers in
 ``repro/kernels/ops.py``): the gradient-sync staging kernels
-(``csrc/grad_sync.cu``), flash attention (``csrc/flash_attention.cu``),
+(``csrc/grad_sync.cu``), flash attention and its backward
+(``csrc/flash_attention.cu``),
 the RG-LRU scan (``csrc/rglru.cu``) and the WKV-6 recurrence
 (``csrc/wkv6.cu``).
 
@@ -318,28 +319,12 @@ fused_unpack.launches = 0
 
 # --------------------------------------------------------- flash attention
 FLASH_HEAD_DIMS = (32, 64, 128, 256)
+FLASH_BWD_HEAD_DIMS = (128,)   # the backward kernel's (csrc BwdTile)
 _FLASH_MAX_THREADS = 256    # kMaxThreads of csrc/flash_attention.cu
+_LSE_ROWS = 64              # kBwdRows of csrc/flash_attention.cu
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Forward GQA attention.  q: (B,S,H,hd); k, v: (B,T,KV,hd), one dtype
-    (f32, bf16 or f16), hd in :data:`FLASH_HEAD_DIMS`, H % KV == 0; any S
-    and T.  Causal and window masks count positions from 0, as
-    :func:`.ref.flash_attention_ref` does.  Forward only: on the card it
-    raises when autograd would need its gradient.
-
-    On the card the dtype picks the kernel: bf16 and f16 run on the tensor
-    cores (``repro_flash_attention_tc``, counted in ``.tc_launches``),
-    f32 on the CUDA cores (``repro_flash_attention``, counted in
-    ``.cuda_core_launches``; it takes at most 256 // (hd // 16) query heads
-    per KV head).  ``.launches`` counts both.  The tensor-core kernel reads
-    q, k and v with TMA, which needs 16-byte-aligned bases: a q, k or v
-    that starts off a 16-byte boundary is first copied into a fresh
-    tensor."""
-    from .build import load_library
-
+def _check_flash(q, k, v, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k and v must be 4-D")
     B, S, H, hd = q.shape
@@ -357,31 +342,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _check_dtype(t, "flash_attention")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must share one dtype")
-    tensor_cores = q.dtype != torch.float32
-    if not tensor_cores and hd // 16 * (H // KV) > _FLASH_MAX_THREADS:
+    if (q.dtype == torch.float32
+            and hd // 16 * (H // KV) > _FLASH_MAX_THREADS):
         raise ValueError(f"flash_attention: {H // KV} query heads per KV "
                          f"head at head dim {hd} exceed one block of the "
                          f"f32 kernel")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
-    if not _on_cuda([q, k, v], "flash_attention"):
-        return _ref.flash_attention_ref(q, k, v, causal=causal,
-                                        window=window)
-    _check_contiguous([q, k, v], "flash_attention")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention: the CUDA kernel is forward "
-                           "only; call it under torch.no_grad()")
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary, which TMA
+    needs: ``t`` itself when it already is, else a fresh copy."""
+    t = t.contiguous()
+    return t if _aligned(t.data_ptr()) else t.clone()
+
+
+def _flash_forward(q, k, v, causal, window, with_lse: bool):
+    """One launch of the forward kernel on checked CUDA tensors; returns
+    ``(out, lse)``, lse (B,H,S) f32 a view of a buffer padded to whole
+    tiles of :data:`_LSE_ROWS` rows when ``with_lse`` (tensor cores only),
+    else None."""
+    from .build import load_library
+
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    tensor_cores = q.dtype != torch.float32
     out = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        rows = -(-S // _LSE_ROWS) * _LSE_ROWS
+        lse = torch.empty((B, H, rows), dtype=torch.float32, device=q.device)
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         if tensor_cores:
-            q, k, v = (t if _aligned(t.data_ptr()) else t.clone()
-                       for t in (q, k, v))
+            q, k, v = (_tma_ready(t) for t in (q, k, v))
             rc = lib.repro_flash_attention_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _CODES[q.dtype], B, S, T, H, KV, hd, int(causal),
-                window or 0, stream)
+                lse.data_ptr() if with_lse else None,
+                lse.shape[2] if with_lse else 0, _CODES[q.dtype], B, S, T, H,
+                KV, hd, int(causal), window or 0, stream)
         else:
             rc = lib.repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -394,12 +395,159 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attention.tc_launches += 1
     else:
         flash_attention.cuda_core_launches += 1
-    return out
+    if with_lse:
+        flash_attention.lse_launches += 1
+        lse = lse[:, :, :S]
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The tensor-core kernel with its backward kernel as the gradient:
+    the forward saves q, k, v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _flash_forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """GQA attention.  q: (B,S,H,hd); k, v: (B,T,KV,hd), one dtype (f32,
+    bf16 or f16), hd in :data:`FLASH_HEAD_DIMS`, H % KV == 0; any S and T.
+    Causal and window masks count positions from 0, as
+    :func:`.ref.flash_attention_ref` does.
+
+    On the card the dtype picks the kernel: bf16 and f16 run on the tensor
+    cores (``repro_flash_attention_tc``, counted in ``.tc_launches``),
+    f32 on the CUDA cores (``repro_flash_attention``, counted in
+    ``.cuda_core_launches``; it takes at most 256 // (hd // 16) query heads
+    per KV head).  ``.launches`` counts both.  The tensor-core kernel reads
+    q, k and v with TMA, which needs 16-byte-aligned bases: a q, k or v
+    that starts off a 16-byte boundary is first copied into a fresh
+    tensor.  When autograd needs a gradient, bf16 and f16 at a head dim of
+    :data:`FLASH_BWD_HEAD_DIMS` are differentiable: the forward also saves
+    each row's log-sum-exp (counted in ``.lse_launches``) and the gradient
+    is :func:`flash_attention_bwd` (counted in ``.bwd_launches``); any
+    other case is forward only and raises."""
+    _check_flash(q, k, v, window)
+    if not _on_cuda([q, k, v], "flash_attention"):
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+    _check_contiguous([q, k, v], "flash_attention")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.dtype == torch.float32 or q.shape[3] not in FLASH_BWD_HEAD_DIMS:
+            raise RuntimeError(
+                f"flash_attention: the CUDA kernel has a backward for bf16 "
+                f"and f16 at head dims {FLASH_BWD_HEAD_DIMS} only, not "
+                f"{q.dtype} at {q.shape[3]}; call it under torch.no_grad()")
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal, window, with_lse=False)[0]
 
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention.cuda_core_launches = 0
+flash_attention.lse_launches = 0
+flash_attention.bwd_launches = 0
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None):
+    """The forward of :func:`flash_attention` with each row's log-sum-exp
+    of the masked scaled scores (natural log): ``(out, lse)``, lse (B,H,S)
+    f32.  bf16 or f16 at a head dim of :data:`FLASH_BWD_HEAD_DIMS` on the
+    card (one launch of the tensor-core kernel's instance that stores the
+    log-sum-exp, counted in ``flash_attention.lse_launches`` too); on the
+    CPU
+    :func:`.ref.flash_attention_ref`.  Records no gradient."""
+    _check_flash(q, k, v, window)
+    if not _on_cuda([q, k, v], "flash_attention_lse"):
+        out, lse = _ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+        return out, lse.float()
+    _check_contiguous([q, k, v], "flash_attention_lse")
+    if q.dtype == torch.float32:
+        raise TypeError("flash_attention_lse: the kernel saves the "
+                        "log-sum-exp in bf16 and f16 only")
+    if q.shape[3] not in FLASH_BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_lse: the kernel saves the "
+                         f"log-sum-exp at head dims {FLASH_BWD_HEAD_DIMS} "
+                         f"only, not {q.shape[3]}")
+    with torch.no_grad():
+        return _flash_forward(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at its output
+    ``out`` and log-sum-exp ``lse`` (:func:`flash_attention_lse`) for the
+    upstream gradient ``dout`` (like q), in the inputs' shapes and dtype.
+    On the card (bf16 or f16, hd in :data:`FLASH_BWD_HEAD_DIMS`) three
+    launches counted here as one call (``flash_attention.bwd_launches``):
+    D = rowsum(dout * out), the backward kernel, which adds dq into an f32
+    scratch allocated here with bulk reduce-adds, and the scratch's
+    conversion to the input dtype; the kernel reads ``lse`` in whole tiles
+    of 64 rows, so it must be the padded view :func:`flash_attention_lse`
+    returns.  On the CPU :func:`.ref.flash_attention_bwd_ref`."""
+    from .build import load_library
+
+    _check_flash(q, k, v, window)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} is not ({B}, {H}, {S}) f32")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise TypeError("flash_attention_bwd: out and dout must be in q's "
+                        "dtype")
+    if not _on_cuda([q, k, v, out, lse, dout], "flash_attention_bwd"):
+        return _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                            causal=causal, window=window)
+    if q.dtype == torch.float32 or hd not in FLASH_BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: the kernel takes bf16 and "
+                         f"f16 at head dims {FLASH_BWD_HEAD_DIMS}, not "
+                         f"{q.dtype} at {hd}")
+    rows = -(-S // _LSE_ROWS) * _LSE_ROWS
+    if not (lse.stride() == (H * rows, rows, 1) and _aligned(lse.data_ptr())
+            and lse.untyped_storage().nbytes()
+            >= 4 * (lse.storage_offset() + B * H * rows)):
+        raise ValueError("flash_attention_bwd: on the card lse must be the "
+                         "one flash_attention_lse returns, a view of a "
+                         f"buffer padded to whole tiles of {_LSE_ROWS} rows")
+    q, k, v, out, dout = (_tma_ready(t) for t in (q, k, v, out, dout))
+    dvec = torch.empty((B, H, rows), dtype=torch.float32, device=q.device)
+    dq_acc = torch.zeros((B, H, rows, hd), dtype=torch.float32,
+                         device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _CODES[q.dtype], B, S, T, H, KV, hd, rows, int(causal),
+            window or 0, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, rc, "flash_attention_bwd")
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
 
 
 # ------------------------------------------------------------------ RG-LRU
@@ -561,3 +709,4 @@ def reset_launches() -> None:
                flash_attention, rglru_scan, rwkv6_wkv):
         fn.launches = 0
     flash_attention.tc_launches = flash_attention.cuda_core_launches = 0
+    flash_attention.lse_launches = flash_attention.bwd_launches = 0

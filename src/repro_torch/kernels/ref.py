@@ -65,28 +65,107 @@ def fused_unpack_ref(buf: torch.Tensor, shapes, dtypes) -> list:
     return out
 
 
+def _attention_mask(rows: torch.Tensor, keys: torch.Tensor, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """(len(rows), len(keys)) bool: which keys each query row sees."""
+    ok = torch.ones((rows.numel(), keys.numel()), dtype=torch.bool,
+                    device=rows.device)
+    if causal:
+        ok = ok & (keys[None, :] <= rows[:, None])
+    if window is not None:
+        ok = ok & (keys[None, :] > rows[:, None] - window)
+    return ok
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        causal: bool = True, window: Optional[int] = None,
+                        return_lse: bool = False):
     """q: (B,S,H,hd); k, v: (B,T,KV,hd) -> (B,S,H,hd).  Dense softmax
     attention with GQA head grouping (head h reads KV head h // (H/KV)) and
     an optional causal and sliding-window mask, positions counted from 0.
-    Scores and softmax in f32; the probabilities are cast to v's dtype
-    before the PV product, as in the reference."""
+    Scores and softmax in f32 (f64 for f64 inputs); the probabilities are
+    cast to v's dtype before the PV product, as in the reference.  With
+    ``return_lse`` also each row's log-sum-exp of the masked scaled scores
+    (natural log), (B,H,S) in the scores' dtype, what the kernel's forward
+    saves for its backward."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
+    acc = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(B, S, KV, H // KV, hd)
-    s = torch.einsum("bskgh,btkh->bkgst", qg, k).float() / math.sqrt(hd)
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(T, device=q.device)[None, :]
-    ok = (kpos <= qpos if causal
-          else torch.ones((S, T), dtype=torch.bool, device=q.device))
-    if window is not None:
-        ok = ok & (kpos > qpos - window)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k).to(acc) / math.sqrt(hd)
+    ok = _attention_mask(torch.arange(S, device=q.device),
+                         torch.arange(T, device=q.device), causal, window)
     s = s.masked_fill(~ok, torch.finfo(torch.float32).min)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype), v)
-    return out.reshape(B, S, H, hd)
+    out = out.reshape(B, S, H, hd)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, S)
+    return out
+
+
+# The backward kernel's tiles (csrc/flash_attention.cu, BwdTile): keys per
+# block and query rows per step.
+BWD_KEYS, BWD_ROWS = 128, 64
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_ref` at output
+    ``o`` with upstream gradient ``do`` (both (B,S,H,hd)), recomputed from
+    the forward's log-sum-exp ``lse`` (B,H,S) as the backward kernel does:
+    D = rowsum(do * o); for each block of :data:`BWD_KEYS` keys and each
+    tile of :data:`BWD_ROWS` query rows that some key of the block sees,
+    P = exp(scale q.k - lse) under the masks, dP = do.v, dS = P (dP - D),
+    dV += P^T.do and dK += dS^T.q summed over the G query heads of each KV
+    head, dQ += dS.k; dq and dk times the scale.  Sums in f32 (f64 for f64
+    inputs), P and dS rounded to v's dtype before their products, the
+    results in the inputs' dtypes.  A row the masks leave no key (a window
+    that ends before the keys do, without causality) has no gradient
+    here."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(hd)
+
+    def heads(t):                                  # (B,S,H,hd) -> (B,KV,G,S,hd)
+        return t.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).to(acc)
+
+    qg, og, dog = heads(q), heads(o), heads(do)
+    kf, vf = (t.permute(0, 2, 1, 3).to(acc) for t in (k, v))   # (B,KV,T,hd)
+    lg = lse.reshape(B, KV, G, S).to(acc)
+    dvec = (dog * og).sum(-1)                                  # D
+    dq = torch.zeros_like(qg)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    rnd = v.dtype
+    for n0 in range(0, T, BWD_KEYS):
+        n1 = min(n0 + BWD_KEYS, T)
+        m_lo = n0 if causal else 0
+        m_hi = min(S, n1 - 1 + window) if window is not None else S
+        for q0 in range(m_lo // BWD_ROWS * BWD_ROWS, m_hi, BWD_ROWS):
+            q1 = min(q0 + BWD_ROWS, S)
+            ok = _attention_mask(torch.arange(q0, q1, device=q.device),
+                                 torch.arange(n0, n1, device=q.device),
+                                 causal, window)
+            kt, vt = kf[:, :, n0:n1], vf[:, :, n0:n1]
+            s = torch.einsum("bkgqd,bktd->bkgqt", qg[..., q0:q1, :], kt)
+            p = torch.exp(s * scale - lg[..., q0:q1, None])
+            p = p.masked_fill(~ok, 0.0)
+            dp = torch.einsum("bkgqd,bktd->bkgqt", dog[..., q0:q1, :], vt)
+            ds = p * (dp - dvec[..., q0:q1, None])
+            p, ds = p.to(rnd).to(acc), ds.to(rnd).to(acc)
+            dv[:, :, n0:n1] += torch.einsum("bkgqt,bkgqd->bktd", p,
+                                            dog[..., q0:q1, :])
+            dk[:, :, n0:n1] += torch.einsum("bkgqt,bkgqd->bktd", ds,
+                                            qg[..., q0:q1, :])
+            dq[..., q0:q1, :] += torch.einsum("bkgqt,bktd->bkgqd", ds, kt)
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    dk = (dk * scale).permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
 
 
 def rglru_ref(x: torch.Tensor, r_gate: torch.Tensor, i_gate: torch.Tensor,

@@ -8,8 +8,10 @@ Conventions, as in the reference:
 * activations are (B, S, D); attention heads are laid out (B, S, H, hd).
 
 Ported: the train and prefill path over a full sequence (with flash
-attention through the CUDA kernel when asked for; MLA never takes it, as in
-the reference), and decode against a bf16/f32 KV cache, an int8 KV cache
+attention through the CUDA kernel when asked for, and for long bf16 and
+f16 self-attention at hd 128 on the card in training too, where the
+reference takes XLA's chunked path; MLA never takes it, as in the
+reference), and decode against a bf16/f32 KV cache, an int8 KV cache
 with bf16 scales, or MLA's compressed latent cache; and the plain,
 non-causal attention of the encoder and of the decoder's cross-attention.
 Decode takes one position per batch row, so the serving
@@ -145,6 +147,18 @@ _CHUNK_THRESHOLD = 2048
 _Q_BLOCK = 512
 
 
+def _flash_kernel_takes(q, k, v) -> bool:
+    """Whether the flash kernel computes this attention both ways, forward
+    and backward: q, k and v on the card, in bf16 or f16, sharing a head
+    dim its backward implements."""
+    from ..kernels import ops as kops
+    hd = q.shape[-1]
+    return (q.is_cuda and q.dtype in (torch.bfloat16, torch.float16)
+            and k.dtype == q.dtype and v.dtype == q.dtype
+            and k.shape[-1] == hd and v.shape[-1] == hd
+            and hd in kops.FLASH_BWD_HEAD_DIMS)
+
+
 def sdpa(q, k, v, mask, use_flash: bool = False,
          window: Optional[int] = None, causal: bool = True):
     """q: (B,S,H,hd); k,v: (B,T,KV,hd); mask: (B,1,1|S,T) additive or None.
@@ -152,13 +166,23 @@ def sdpa(q, k, v, mask, use_flash: bool = False,
     ``use_flash`` with no mask takes the flash-attention kernel
     (:func:`repro_torch.kernels.ops.flash_attention`); otherwise long
     self-attention takes the query-chunked path so the score matrix
-    working set stays bounded, and the rest the dense path."""
+    working set stays bounded, and the rest the dense path.  Long
+    self-attention that the kernel takes both ways
+    (:func:`_flash_kernel_takes`: on the card, bf16 or f16, hd 128) runs
+    through the kernel instead of the chunked path, in training too (its
+    backward is a kernel as well): the same function to rounding.  The
+    CPU, f32 and MLA's 192-wide folded heads keep the chunked path."""
     S, T = q.shape[1], k.shape[1]
     if use_flash and mask is None:
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window)
     if mask is None:
         if S > _CHUNK_THRESHOLD and S == T:
+            if _flash_kernel_takes(q, k, v):
+                from ..kernels import ops as kops
+                return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                            v.contiguous(), causal=causal,
+                                            window=window)
             for blk in (_Q_BLOCK, 256, 128, 64):
                 if S % blk == 0:
                     return _flash_xla(q, k, v, causal, window, qb=blk)

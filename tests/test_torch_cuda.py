@@ -10,6 +10,8 @@ machine without a CUDA device and run on the GPU machine with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -245,6 +247,176 @@ def test_flash_attention_refuses_what_it_does_not_take(dev):
         K.flash_attention(q.transpose(1, 2), q, q)
     with pytest.raises(RuntimeError):        # forward only
         K.flash_attention(q.requires_grad_(), q, q)
+
+
+# ------------------------------------------------ flash attention backward
+def _lse_bwd_counts():
+    return K.flash_attention.lse_launches, K.flash_attention.bwd_launches
+
+
+# the backward's gradients against autograd of the plain version on f32
+# copies, as a share of the largest |gradient|: P and dS rounded to the
+# input dtype before their products, as the plain path's einsums round
+# them (bf16: at most 4.2e-3 read on the card; f16, three more bits:
+# 5.4e-4); and against the plain backward in the same dtype, which rounds
+# at the same places but from its own exp (at most 3.7e-3 read)
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+BWD_REF_TOL = 1e-2
+
+
+def _bwd_case(dev, B, S, T, H, KV, dt, causal=True, window=None, hd=128):
+    gen = torch.Generator(device=dev).manual_seed(S * 7 + T + H + KV)
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, T, KV, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, T, KV, hd, generator=gen, device=dev).to(dt)
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+    before = _lse_bwd_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = K.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert _lse_bwd_counts() == (before[0] + 1, before[1] + 1)
+    # the forward with the log-sum-exp is the serving forward, bit for bit
+    o, lse = K.flash_attention_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(o, K.flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    assert torch.equal(o, out.detach())
+    _, lse32 = R.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window,
+                                     return_lse=True)
+    torch.testing.assert_close(lse, lse32, rtol=1e-5, atol=1e-4)
+    f32 = [t.float().requires_grad_() for t in (q, k, v)]
+    want32 = torch.autograd.grad(R.flash_attention_ref(
+        *f32, causal=causal, window=window), f32, do.float())
+    want = R.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    for name, g, w32, w in zip("qkv", got, want32, want):
+        assert g.dtype == dt and g.shape == w32.shape, name
+        scale = float(w32.abs().max())
+        err32 = float((g.float() - w32).abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err32 <= BWD_TOL[dt] * scale, (name, err32, scale)
+        assert err <= BWD_REF_TOL * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,T,H,KV,causal,window", [
+    (1, 200, 200, 8, 8, True, None),          # G = 1
+    (2, 300, 300, 8, 2, True, None),          # G = 4
+    (1, 1000, 1000, 7, 1, True, None),        # G = 7
+    (2, 700, 700, 14, 2, True, 100),          # a window
+    (1, 129, 300, 4, 1, False, None),         # ragged, S < T
+    (1, 129, 300, 4, 1, True, None),          # keys no causal row sees
+    (1, 300, 129, 4, 2, True, None),          # ragged, S > T
+    (1, 1000, 1000, 4, 1, False, 200),
+])
+def test_flash_attention_backward(dev, dt, B, S, T, H, KV, causal, window):
+    _bwd_case(dev, B, S, T, H, KV, dt, causal, window)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+def test_flash_attention_backward_coder_training_shape(dev, dt):
+    """deepseek-coder-33b's training attention: 2 rows of 4096, 56 query
+    heads over 8 KV heads at hd 128, causal."""
+    _bwd_case(dev, 2, 4096, 4096, 56, 8, dt)
+
+
+def test_flash_attention_backward_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 64, 4, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):          # no backward at hd 64
+        K.flash_attention(q.requires_grad_(), q, q)
+    q = torch.zeros(1, 64, 4, 128, device=dev)
+    with pytest.raises(RuntimeError):          # f32: forward only
+        K.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(TypeError):
+        K.flash_attention_lse(q, q, q)
+
+
+def test_sdpa_routes_long_training_attention_to_the_kernel(dev):
+    """``sdpa`` takes the kernel both ways for long bf16 self-attention at
+    hd 128, and keeps the chunked path for MLA's 192-wide fold and f32."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+
+    def run(H, KV, hd, dt):
+        q = torch.randn(1, 4096, H, hd, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(1, 4096, KV, hd, generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        before = (K.flash_attention.launches,) + _lse_bwd_counts()
+        out = L.sdpa(*leaves, None)
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+        torch.cuda.synchronize()
+        now = (K.flash_attention.launches,) + _lse_bwd_counts()
+        return tuple(a - b for a, b in zip(now, before))
+
+    assert run(8, 2, 128, torch.bfloat16) == (1, 1, 1)
+    assert run(8, 8, 192, torch.bfloat16) == (0, 0, 0)    # MLA's fold
+    assert run(8, 2, 128, torch.float32) == (0, 0, 0)
+
+
+# the training step through the kernel against the chunked path: relative
+# gaps of the loss, of the global gradient norm and of the worst leaf's
+# gradient (the norm of the difference over the chunked path's norm), two
+# bf16 paths that round at different places.  Read on the card (H100):
+# 3.8e-5, 1.1e-4 and 2.0e-2; a wrong mask, head or scale moves them by
+# their own scale.
+LOSS_GAP_LIMIT, NORM_GAP_LIMIT, LEAF_GAP_LIMIT = 1e-3, 1e-3, 5e-2
+
+
+def test_coder_training_step_through_the_kernel(dev, monkeypatch):
+    """One loss and its gradients of deepseek-coder-33b at 4 layers (the
+    benchmark's cut) on 2 rows of 4096 tokens, remat on: through the
+    kernel (8 forwards with the log-sum-exp, remat's recompute included,
+    and 4 backwards) against the same step through the chunked path, on
+    the same bf16 weights and tokens.  The gaps printed are the
+    readings."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import stacked as ST
+
+    cfg = dataclasses.replace(get_config("deepseek-coder-33b"), n_layers=4)
+    params = ST.init_params(cfg, seed=0, device=dev, draw_on_device=True)
+    leaves = ST.leaves(params)
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 4096), generator=gen,
+                                     device=dev)}
+
+    def step():
+        for p in leaves:
+            p.requires_grad_(True)
+        before = _lse_bwd_counts()
+        loss = ST.loss_fn(params, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        torch.cuda.synchronize()
+        used = tuple(a - b for a, b in zip(_lse_bwd_counts(), before))
+        return float(loss), [g.float() for g in grads], used
+
+    loss_k, grads_k, used_k = step()
+    monkeypatch.setattr(L, "_flash_kernel_takes", lambda q, k, v: False)
+    loss_c, grads_c, used_c = step()
+    assert used_k == (2 * cfg.n_layers, cfg.n_layers) and used_c == (0, 0)
+    loss_gap = abs(loss_k - loss_c) / abs(loss_c)
+    norms = [float(g.norm()) for g in grads_c]
+    leaf_gap = max(float((a - b).norm()) / max(n, 1e-30)
+                   for a, b, n in zip(grads_k, grads_c, norms))
+    norm_k = float(torch.sqrt(sum(g.square().sum() for g in grads_k)))
+    norm_c = float(torch.sqrt(sum(g.square().sum() for g in grads_c)))
+    print(f"coder 4 layers, 2 x 4096: loss {loss_k:.6f} (kernel) "
+          f"{loss_c:.6f} (chunked), relative gap {loss_gap:.3e}; gradient "
+          f"norm {norm_k:.6e} / {norm_c:.6e}, relative gap "
+          f"{abs(norm_k - norm_c) / norm_c:.3e}; worst leaf's "
+          f"|g_kernel - g_chunked| / |g_chunked| {leaf_gap:.3e}")
+    assert math.isfinite(loss_k) and all(bool(torch.isfinite(g).all())
+                                         for g in grads_k)
+    assert loss_gap < LOSS_GAP_LIMIT
+    assert abs(norm_k - norm_c) / norm_c < NORM_GAP_LIMIT
+    assert leaf_gap < LEAF_GAP_LIMIT
 
 
 # ------------------------------------------------------------------ RG-LRU

@@ -331,3 +331,143 @@ def test_flash_inside_model_matches_reference():
                                atol=5e-4)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=5e-4,
                                atol=5e-4)
+
+
+# ------------------------------------------------- the backward's algorithm
+def _grad_case(B, S, T, H, KV, hd, seed, dtype=torch.float64):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(dtype)
+               for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    do = torch.from_numpy(rng.standard_normal((B, S, H, hd))).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window", [
+    (1, 64, 64, 1, 1, 64, True, None),        # G = 1
+    (2, 150, 150, 4, 1, 64, True, None),      # G = 4
+    (1, 200, 200, 7, 1, 128, True, None),     # G = 7, the coder's group
+    (1, 130, 130, 4, 1, 128, False, None),
+    (1, 300, 300, 4, 1, 64, True, 50),        # window inside a key block
+    (1, 300, 300, 7, 1, 64, False, 100),
+    (2, 100, 170, 4, 2, 64, True, None),      # ragged, S < T
+    (1, 170, 100, 4, 2, 128, True, None),     # ragged, S > T
+    (1, 129, 300, 7, 7, 64, False, None),
+    (1, 257, 257, 4, 4, 128, True, 129),
+    (1, 65, 200, 4, 1, 64, False, 80),
+    (2, 1, 1, 4, 2, 128, True, None),
+])
+def test_flash_bwd_ref_matches_autograd(B, S, T, H, KV, hd, causal, window):
+    """The backward kernel's algorithm in plain PyTorch (recompute from the
+    log-sum-exp, D = rowsum(dO * O), blocks of 128 keys over tiles of 64
+    rows, dK and dV summed over each KV head's G query heads) against
+    autograd of the plain forward, in f64."""
+    q, k, v, do = _grad_case(B, S, T, H, KV, hd, seed=S * 7 + T + H)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = R.flash_attention_ref(*leaves, causal=causal, window=window)
+    want = torch.autograd.grad(out, leaves, do)
+    o, lse = R.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    got = R.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [
+    (100, 100, True, None), (70, 130, False, None), (200, 200, True, 33)])
+def test_flash_ref_lse_is_logsumexp_of_masked_scores(S, T, causal, window):
+    """The log-sum-exp the forward saves for the backward: per (batch,
+    query head, row), natural log, of the scaled scores with masked ones
+    at finfo(f32).min."""
+    q, k, v, _ = _grad_case(2, S, T, 6, 2, 64, seed=S + T,
+                            dtype=torch.float32)
+    out, lse = R.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    assert lse.shape == (2, 6, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, R.flash_attention_ref(
+        q, k, v, causal=causal, window=window))
+    kh = k.repeat_interleave(3, dim=2)                     # head h -> h // 3
+    s = torch.einsum("bshd,bthd->bhst", q, kh) / np.sqrt(64)
+    qpos, kpos = torch.arange(S)[:, None], torch.arange(T)[None, :]
+    ok = (kpos <= qpos) if causal else torch.ones(S, T, dtype=torch.bool)
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = s.masked_fill(~ok, torch.finfo(torch.float32).min)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_wrapper_gradient_on_cpu(dt):
+    """On the CPU the wrapper is the plain version, so autograd through it
+    gives the gradients that :func:`ops.flash_attention_bwd` (the plain
+    backward there) gives from :func:`ops.flash_attention_lse`; no kernel
+    launches."""
+    tdt = DTYPES[dt][1]
+    q, k, v, do = _grad_case(1, 150, 150, 8, 2, 128, seed=11,
+                             dtype=torch.float32)
+    q, k, v, do = (t.to(tdt) for t in (q, k, v, do))
+    before = (K.flash_attention.launches, K.flash_attention.lse_launches,
+              K.flash_attention.bwd_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(K.flash_attention(*leaves, window=40),
+                               leaves, do)
+    out, lse = K.flash_attention_lse(q, k, v, window=40)
+    got = K.flash_attention_bwd(q, k, v, out, lse, do, window=40)
+    assert (K.flash_attention.launches, K.flash_attention.lse_launches,
+            K.flash_attention.bwd_launches) == before
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        # in bf16 autograd rounds dP to bf16 and the plain backward does
+        # not, so single elements differ by a few bf16 ulps of the largest
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= (
+            2e-5 if dt == "f32" else 1e-2) * scale
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_sdpa_long_on_cpu_keeps_the_chunked_path(monkeypatch, dt):
+    """On the CPU, long self-attention (S = 4096) still takes the
+    query-chunked path in bf16 at hd 128, the shape the kernel takes on
+    the card, so the parity tests against the JAX package run as before."""
+    seen = []
+
+    def chunked(q, k, v, causal, window, qb=L._Q_BLOCK):
+        seen.append(qb)
+        return torch.zeros_like(q)
+
+    def kernel(*a, **kw):
+        raise AssertionError("the flash kernel's wrapper was called")
+
+    monkeypatch.setattr(L, "_flash_xla", chunked)
+    monkeypatch.setattr(K, "flash_attention", kernel)
+    tdt = DTYPES[dt][1]
+    q = torch.zeros(1, 4096, 8, 128, dtype=tdt)
+    kv = torch.zeros(1, 4096, 1, 128, dtype=tdt)
+    assert L.sdpa(q, kv, kv, None).shape == q.shape
+    assert seen == [L._Q_BLOCK]
+
+
+class _Shape:
+    """What ``sdpa``'s route reads of a tensor, without a card."""
+
+    def __init__(self, hd, dtype=torch.bfloat16, cuda=True):
+        self.shape, self.dtype, self.is_cuda = (2, 4096, 8, hd), dtype, cuda
+
+
+@pytest.mark.parametrize("q,k,v,takes", [
+    (_Shape(128), _Shape(128), _Shape(128), True),             # the coder
+    (_Shape(128, torch.float16), _Shape(128, torch.float16),
+     _Shape(128, torch.float16), True),
+    (_Shape(192), _Shape(192), _Shape(192), False),            # MLA's fold
+    (_Shape(128, torch.float32), _Shape(128, torch.float32),
+     _Shape(128, torch.float32), False),                       # f32
+    (_Shape(64), _Shape(64), _Shape(64), False),               # no backward
+    (_Shape(128, cuda=False), _Shape(128, cuda=False),
+     _Shape(128, cuda=False), False),                          # the CPU
+])
+def test_sdpa_route_to_the_kernel(q, k, v, takes):
+    """The kernel takes long self-attention by what ``sdpa`` sees of its
+    inputs: on the card, bf16 or f16, a head dim with a backward kernel."""
+    assert L._flash_kernel_takes(q, k, v) is takes
